@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's torch fleet engine goes, on one GPU.
 
-    python3 benchmarks_torch/profile_fleet.py [--machines 200] [--seconds 60]
+    python3 benchmarks_torch/profile_fleet.py
 
-Runs the fleet cell of `chip_smoke.py` (200 machines x 40 cores,
-conversation-poisson at 2.72 rps per machine, policy "proposed") for a
-short horizon under `torch.profiler`, after one untimed warm-up run of
-the same length. Prints the wall time of the profiled run, the summed
-device time of its kernels, the device's idle share
+Runs the fleet cell of `chip_smoke.py` (its `FLEET` config: 200
+machines x 40 cores, conversation-poisson at 545.455 rps, policy
+"proposed") cut to the first 60 simulated seconds, under
+`torch.profiler`, after one untimed warm-up run of the same length.
+Prints the wall time of the profiled run, the summed device time of its
+kernels, the device's idle share
 (1 - device time / wall), the count of kernel launches per simulated
 period, and the kernels that take the most device time. Where the
 profiler records no device time it prints "not measured" for the
@@ -15,27 +16,26 @@ device numbers. Needs CUDA; exits 1 without it.
 """
 from __future__ import annotations
 
-import argparse
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parents[1]
+SECONDS = 60.0      # simulated horizon: 60 of the cell's 3,600 periods
+TOP = 12            # kernels listed by device time
+
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--machines", type=int, default=200)
-    ap.add_argument("--seconds", type=float, default=60.0)
-    ap.add_argument("--top", type=int, default=12)
-    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_fleet: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import FLEET
     from repro_torch.sim import ExperimentConfig
     from repro_torch.sim.fleetsim import run_fleet_experiment
     from repro_torch.workloads import get_scenario
@@ -44,11 +44,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    n_prompt = max(1, round(args.machines * 45 / 200))
-    cfg = ExperimentConfig(
-        n_prompt=n_prompt, n_token=args.machines - n_prompt, num_cores=40,
-        rate_rps=545.455 * args.machines / 200, duration_s=args.seconds,
-        policy="proposed").with_engine("fleet", backend="torch")
+    cfg = ExperimentConfig(**dict(FLEET, duration_s=SECONDS)).with_engine(
+        "fleet", backend="torch")
     reqs = get_scenario(cfg.scenario).generate(
         rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
     run_fleet_experiment(cfg, requests=reqs)          # warm-up
@@ -86,7 +83,7 @@ def main() -> int:
         if "aging_update" in e.key:
             print(f"aging_update kernel: {e.count} launches, "
                   f"{getattr(e, key) / e.count:.3f} us each on the device")
-    for e in sorted(kernels, key=lambda e: -getattr(e, key))[:args.top]:
+    for e in sorted(kernels, key=lambda e: -getattr(e, key))[:TOP]:
         us = getattr(e, key)
         print(f"  {us / 1e3:10.2f} ms {100 * us / device_us:5.1f}% "
               f"{e.count:8d}x  {e.key[:90]}")

@@ -9,9 +9,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    power limit (nvidia-smi), and the build of every CUDA kernel of the
    port from the sources in this checkout (nvcc, sm_90a).
 2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the fleet engine gives it and beyond, with its time from CUDA
-   events beside the plain version's and the least time the card could
-   take (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32).
+   shapes the fleet engine gives it and beyond. Its time (`ms`) is the
+   device time per launch: 100 launches captured in one CUDA graph and
+   replayed, timed with CUDA events; the plain version is timed the same
+   way (`plain_ms`). Beside them stand the least time the card could
+   take (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32) and
+   the rate of back-to-back eager calls from Python (`wrapper_ms`,
+   `plain_eager_ms`), which the host's speed sets.
 3. The fleet engine end to end on CUDA through `run_experiment`: the
    headline row of `benchmarks/bench_sim.py` `fleet_scale`, 200 machines
    x 40 cores x 1 h of conversation-poisson at 545.455 rps, with the
@@ -65,28 +69,61 @@ def rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def time_ms(fn, launches: int = 100, trials: int = 11) -> float:
-    """Median over `trials` of the mean time of `launches` back-to-back
-    calls, from CUDA events (after a warm-up)."""
+def _median_ms(run, calls: int, trials: int) -> float:
+    """Median over `trials` of the CUDA-event time of `run()` divided by
+    the `calls` it makes."""
     import torch
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
     per = []
     for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(launches):
-            fn()
+        run()
         end.record()
         end.synchronize()
-        per.append(start.elapsed_time(end) / launches)
+        per.append(start.elapsed_time(end) / calls)
     per.sort()
     return per[len(per) // 2]
 
 
-def phase_environment(torch, kernels_mod, build_mod) -> None:
+def eager_ms(fn, calls: int = 100, trials: int = 11) -> float:
+    """Time per call of `calls` back-to-back eager calls of `fn` from
+    Python: host-bound wherever the device work is short."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+    return _median_ms(run, calls, trials)
+
+
+def graph_ms(fn, calls: int = 100, trials: int = 11) -> float:
+    """Device time per call of `fn`: `calls` calls captured in one CUDA
+    graph and replayed, so no Python or launch cost of the host counts."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _median_ms(graph.replay, calls, trials)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_environment(torch, kernel) -> None:
     log(f"[env] python {platform.python_version()} torch {torch.__version__}"
         f" cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     smi = subprocess.run(
@@ -94,14 +131,14 @@ def phase_environment(torch, kernels_mod, build_mod) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[env] card: {smi}")
-    kernels = kernels_mod.all_kernels()
-    seconds = build_mod.build_all(kernels)
-    log(f"[build] {len(kernels)} kernel(s) with {build_mod.nvcc_path()} "
-        f"in {seconds:.2f} s")
-    for k in kernels:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {k.name}: {line.strip()}")
+    from repro_torch.kernels._build import nvcc_path
+    t0 = time.perf_counter()
+    kernel.function()
+    log(f"[build] {kernel.name} with {nvcc_path()} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in kernel.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {kernel.name}: {line.strip()}")
 
 
 def phase_aging_kernel(torch, np, params):
@@ -127,23 +164,32 @@ def phase_aging_kernel(torch, np, params):
         if not ok or not torch.isfinite(out).all():
             raise AssertionError(f"aging_update disagrees at N={n}")
         if n in TIMED_NS:
-            ms = time_ms(lambda: advance_fleet(*args, params))
-            plain_ms = time_ms(lambda: aging_update_ref(*args, params))
+            def kernel():
+                return advance_fleet(*args, params)
+
+            def plain():
+                return aging_update_ref(*args, params)
+            times = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
+                     "wrapper_ms": eager_ms(kernel),
+                     "plain_eager_ms": eager_ms(plain)}
             bytes_ms = AGING_BYTES * n / HBM_BYTES_PER_S * 1e3
             ops_ms = AGING_OPS * n / F32_FLOP_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
-            log(f"[aging_update] N={n}: kernel {ms * 1e3:.2f} us, plain "
-                f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
-                f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            log(f"[aging_update] N={n}: per launch on the device (CUDA "
+                f"graph) kernel {times['ms'] * 1e3:.3f} us, plain "
+                f"{times['plain_ms'] * 1e3:.3f} us; eager from Python "
+                f"wrapper {times['wrapper_ms'] * 1e3:.2f} us, plain "
+                f"{times['plain_eager_ms'] * 1e3:.2f} us; bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by})")
             if n == 8000:       # the shape the smoke fleet gives it
-                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms,
-                       "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                    else "operations")}
+                row = dict(times, max_abs_err=err, bound_ms=bound_ms,
+                           bound_by=bound_by)
     return row
 
 
 def phase_fleet(torch, kernels):
+    """`kernels`: the `CudaKernel` of every kernel the fleet path runs."""
     from repro_torch.sim import ExperimentConfig, run_experiment
     from repro_torch.sim.fleetsim import run_fleet_experiment
     from repro_torch.workloads import get_scenario
@@ -222,14 +268,12 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
-    from repro_torch import kernels as kernels_mod
     from repro_torch.core.aging import DEFAULT_PARAMS
-    from repro_torch.kernels import _build as build_mod
+    from repro_torch.kernels.aging_update.ops import KERNEL
 
-    phase_environment(torch, kernels_mod, build_mod)
+    phase_environment(torch, KERNEL)
     aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS)
-    kernels = kernels_mod.all_kernels()
-    launches = phase_fleet(torch, kernels)
+    launches = phase_fleet(torch, (KERNEL,))
     line = {"kernels": [dict({
         "name": "aging_update", "route": "cuda",
         "source": "src/repro_torch/kernels/aging_update/aging_update.cu",

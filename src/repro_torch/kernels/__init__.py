@@ -3,14 +3,6 @@
 Each kernel sits in its own package beside the reference's Pallas
 kernel of the same name: the CUDA source, `ops.py` (the wrapper, which
 launches the kernel on CUDA tensors and runs the plain version on CPU
-tensors) and `ref.py` (the plain PyTorch version). `all_kernels()`
-lists every kernel, so a caller can build them together and read or
-reset their launch counts.
+tensors, and holds the kernel's `CudaKernel` with its launch count) and
+`ref.py` (the plain PyTorch version).
 """
-from __future__ import annotations
-
-
-def all_kernels():
-    """Every `CudaKernel` of the port, in porting order."""
-    from repro_torch.kernels.aging_update import ops as aging_ops
-    return (aging_ops.KERNEL,)

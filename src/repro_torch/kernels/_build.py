@@ -6,8 +6,7 @@ minutes). The shared library goes under the checkout's `build/kernels/`
 (listed in `.gitignore`) at first use. Its file name carries a hash of
 the source, the flags and the compiler, so an edited source builds anew
 and an unchanged one is loaded as it is. Building needs the CUDA toolkit
-and happens only when a kernel is first launched (or `build_all` is
-called), never at import.
+and happens only when a kernel is first launched, never at import.
 """
 from __future__ import annotations
 
@@ -16,9 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
-from typing import Iterable
 
 #: sm_90a, not sm_90: later kernels need wgmma and setmaxnreg. No
 #: --use_fast_math (its __expf/__powf miss the kernels' tolerances) and
@@ -70,41 +67,27 @@ class CudaKernel:
     def function(self):
         """The bound C entry point, building the library if needed."""
         if self._fn is None:
-            build_all([self])
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.entry)
+            lib = self.library_path()
+            if not lib.exists():
+                self._build(lib)
+            fn = getattr(ctypes.CDLL(str(lib)), self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-
-def build_all(kernels: Iterable[CudaKernel]) -> float:
-    """Compile every kernel whose library is missing, one nvcc process
-    for each source, all started together. Returns the wall seconds
-    taken; raises RuntimeError with nvcc's output if any build fails."""
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for k in kernels:
-        lib = k.library_path()
-        if lib.exists():
-            continue
+    def _build(self, lib: Path) -> None:
+        """Compile the source into `lib`; raises RuntimeError with nvcc's
+        output if the build fails."""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((k, lib, tmp, proc))
-    failed = []
-    for k, lib, tmp, proc in jobs:
-        k.build_log, _ = proc.communicate()
-        if proc.returncode == 0:
-            # atomic: a concurrent build of the same source is harmless
-            os.replace(tmp, lib)
-        else:
-            failed.append(f"{k.name} (nvcc exit {proc.returncode}):\n"
-                          f"{k.build_log}")
-    if failed:
-        raise RuntimeError("CUDA kernel build failed: "
-                           + "\n".join(failed))
-    return time.perf_counter() - t0
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.build_log = proc.stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA kernel build failed: {self.name} "
+                               f"(nvcc exit {proc.returncode}):\n"
+                               f"{self.build_log}")
+        # atomic: a concurrent build of the same source is harmless
+        os.replace(tmp, lib)
