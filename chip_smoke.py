@@ -7,15 +7,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. Environment: Python, torch and CUDA versions, the card's name and
    power limit (nvidia-smi), and the build of every CUDA kernel of the
-   port from the sources in this checkout (nvcc, sm_90a).
-2. Each kernel against its plain PyTorch version on the card, at the
-   shapes the fleet engine gives it and beyond. Its time (`ms`) is the
-   device time per launch: 100 launches captured in one CUDA graph and
-   replayed, timed with CUDA events; the plain version is timed the same
-   way (`plain_ms`). Beside them stand the least time the card could
-   take (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32) and
-   the rate of back-to-back eager calls from Python (`wrapper_ms`,
+   port from the sources in this checkout (one nvcc per source, all
+   started together; sm_90a).
+2. The aging kernel against its plain PyTorch version on the card, at
+   the shapes the fleet engine gives it and beyond. Its time (`ms`) is
+   the device time per launch: 100 launches captured in one CUDA graph
+   and replayed, timed with CUDA events; the plain version is timed the
+   same way (`plain_ms`). Beside them stand the least time the card
+   could take (`bound_ms`: the larger of bytes over 3.35 TB/s and
+   operations over the peak rate of their type) and the rate of
+   back-to-back eager calls from Python (`wrapper_ms`,
    `plain_eager_ms`), which the host's speed sets.
+2b. The two attention kernels against their plain versions, on the
+   shapes of the reference's `TestFlashAttentionKernel` and
+   `TestDecodeAttentionKernel` (float32 and bfloat16) and on the shapes
+   Llama-3-8B gives them in phase 4, timed as in phase 2, and beside
+   them one PyTorch call that computes the same function
+   (`scaled_dot_product_attention`, `library_ms`), timed the same way
+   and used nowhere in the port.
 3. The fleet engine end to end on CUDA through `run_experiment`: the
    headline row of `benchmarks/bench_sim.py` `fleet_scale`, 200 machines
    x 40 cores x 1 h of conversation-poisson at 545.455 rps, with the
@@ -23,6 +32,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    port's float64 numpy backend runs the same trace as the reference for
    the result, held at the bounds of `TestBackendAgreement` in
    `tests/test_fleetsim.py`.
+4. Llama-3-8B at full width (32 layers, bfloat16, random weights from
+   seed 0) served by the port's `InferenceEngine` and `CoreManager`: 8
+   requests of 128 to 1,024 prompt tokens and 32 new tokens each, 4
+   batch slots, policy "proposed" on 16 host cores. Prefill attention
+   goes through the flash_attention kernel and decode attention through
+   the decode_attention kernel; their launch counts are read right
+   after. Then each request's tokens are fed again through the model on
+   the kernel path and on the plain path: in bfloat16 the kernel path
+   must stay within the noise floor of bfloat16 rounding at this depth,
+   measured in the same run, and in float32 (the same architecture at
+   full width) within 1e-3 of the plain path (`F32_RTOL`, `F32_ATOL`).
 
 The last two lines are one JSON object per kernel and the device line.
 Without CUDA, or without `src/repro_torch` beside this file, it prints
@@ -38,10 +58,12 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 FLOP/s
-# outside the tensor cores.
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores, bf16 FLOP/s of the tensor
+# cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 KERNEL_NS = (1, 7, 128, 1024, 5000, 8000, 1_280_000)
 TIMED_NS = (8000, 1_280_000)          # the smoke fleet; 10k x 128 cores
@@ -54,6 +76,59 @@ FLEET = dict(n_prompt=45, n_token=155, num_cores=40, rate_rps=545.455,
 # TestBackendAgreement bounds (reference tests/test_fleetsim.py)
 BOUNDS = {"completed": 0.01, "mean_latency_s": 0.01,
           "p50_degradation": 0.02, "fleet_yearly_kgco2eq": 0.05}
+
+# (b, h, hkv, s, d, window, dtype): the reference's TestFlashAttentionKernel
+# shapes in float32 and bfloat16, its windows, and Llama-3-8B's prefill
+# (one request of S tokens: 32 heads over 8 KV heads, head_dim 128)
+FLASH_CASES = ([(b, h, hkv, s, d, 0, dt)
+                for dt in ("float32", "bfloat16")
+                for b, h, hkv, s, d in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
+                                        (1, 4, 1, 128, 128),
+                                        (2, 2, 2, 192, 64))]
+               + [(1, 2, 2, 256, 64, w, "float32") for w in (32, 128)]
+               + [(1, 32, 8, s, 128, 0, "bfloat16")
+                  for s in (128, 1000, 1024)])
+FLASH_MAIN = (1, 32, 8, 1024, 128, 0, "bfloat16")
+# (b, h, hkv, s, d, window, dtype): the reference's
+# TestDecodeAttentionKernel shapes and window, and Llama-3-8B's decode (4
+# slots against the 1,536-position cache, pos drawn in [1, 1536])
+DECODE_CASES = ([(b, h, hkv, s, d, 0, dt)
+                 for dt in ("float32", "bfloat16")
+                 for b, h, hkv, s, d in ((1, 4, 4, 512, 64),
+                                         (4, 8, 2, 1024, 64),
+                                         (2, 8, 1, 512, 128),
+                                         (2, 4, 4, 640, 64))]
+                + [(2, 4, 4, 512, 64, 128, "float32"),
+                   (4, 32, 8, 1536, 128, 0, "bfloat16")])
+DECODE_MAIN = (4, 32, 8, 1536, 128, 0, "bfloat16")
+
+
+def attention_tol(dtype: str) -> dict:
+    """`tests/test_kernels.py::tol` of the reference."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+# phase 4: the serving cell
+SERVE = dict(arch="llama3-8b", seed=0, max_batch=4, max_len=1536,
+             policy="proposed", host_cores=16, requests=8,
+             prompt_lens=(128, 1024), new_tokens=32)
+# Phase 4 holds the kernel path against the plain path (the kernels'
+# plain versions, `use_kernel=False`) on the engine's tokens, two ways:
+# - float32, the same architecture at full width (weights from seed 1) on
+#   F32_REQUESTS of the requests: per logit |kernel - plain| <= atol +
+#   rtol * |plain|. The kernels hold their float32 plain versions to 2e-5
+#   per call (tests/test_kernels.py tol); 64 calls in a 32-layer pass
+#   give 1e-3 on logits of magnitude up to about 7.
+# - bfloat16, every request: the relative L2 distance of the kernel
+#   path's logits from the plain path's, per step, may not exceed what
+#   bfloat16 rounding alone makes of the plain path at this depth,
+#   measured in the same run: the plain path again on the same model with
+#   its embedding table perturbed by relative Gaussian noise of 2^-9
+#   (seed 1), below one bfloat16 rounding. Both are maxima over all steps.
+F32_RTOL, F32_ATOL = 1e-3, 1e-3
+F32_REQUESTS = 2
+NOISE_REL = 2.0 ** -9
 
 
 def log(msg: str) -> None:
@@ -123,7 +198,7 @@ def graph_ms(fn, calls: int = 100, trials: int = 11) -> float:
     return ms
 
 
-def phase_environment(torch, kernel) -> None:
+def phase_environment(torch, kernels) -> None:
     log(f"[env] python {platform.python_version()} torch {torch.__version__}"
         f" cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     smi = subprocess.run(
@@ -131,14 +206,18 @@ def phase_environment(torch, kernel) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[env] card: {smi}")
-    from repro_torch.kernels._build import nvcc_path
+    # float32 products in full float32, as the plain versions assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels._build import build_all, nvcc_path
     t0 = time.perf_counter()
-    kernel.function()
-    log(f"[build] {kernel.name} with {nvcc_path()} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {kernel.name}: {line.strip()}")
+    build_all(kernels)
+    log(f"[build] {', '.join(k.name for k in kernels)} with {nvcc_path()} "
+        f"in {time.perf_counter() - t0:.2f} s (in parallel)")
+    for kernel in kernels:
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {kernel.name}: {line.strip()}")
 
 
 def phase_aging_kernel(torch, np, params):
@@ -186,6 +265,124 @@ def phase_aging_kernel(torch, np, params):
                 row = dict(times, max_abs_err=err, bound_ms=bound_ms,
                            bound_by=bound_by)
     return row
+
+
+def _peak(dtype: str) -> float:
+    return BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
+
+
+def _flash_case(torch, np, case):
+    """(kernel, plain, library, bytes, operations) of one
+    flash_attention case: three calls on the same inputs, each giving
+    (B, S, H, D), and the work one call must do: q, k and v read once
+    and the output written once; two products of 2 * D operations for
+    every (query, visible key) pair."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import attention_bhsd
+    b, h, hkv, s, d, window, dtype = case
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda").to(getattr(torch, dtype))
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(s, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - window) if window else None
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=band, is_causal=band is None,
+            enable_gqa=True).transpose(1, 2)
+
+    size = 2 if dtype == "bfloat16" else 4
+    visible = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    return (lambda: attention_bhsd(q, k, v, window=window),
+            lambda: attention_bhsd(q, k, v, window=window, use_kernel=False),
+            library, (2 * b * s * h * d + 2 * b * s * hkv * d) * size,
+            4 * d * b * h * visible)
+
+
+def _decode_case(torch, np, case):
+    """(kernel, plain, library, bytes, operations) of one
+    decode_attention case, pos drawn in [1, S]: three calls on the same
+    inputs, each giving (B, H, D), and the work one call must do: the
+    visible K and V rows, q, pos and the output, each once; 4 * D
+    operations per (head, visible position)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_bhd
+    b, h, hkv, s, d, window, dtype = case
+    rng = np.random.default_rng(s)
+    q, kc, vc = (torch.tensor(rng.standard_normal(shape),
+                              dtype=torch.float32,
+                              device="cuda").to(getattr(torch, dtype))
+                 for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lens = rng.integers(1, s + 1, b)
+    pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    idx = torch.arange(s, device="cuda")[None, :]
+    valid = idx < pos[:, None]
+    if window:
+        valid &= idx >= pos[:, None] - window
+    mask = valid[:, None, None, :]
+    qb, kb, vb = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+    size = 2 if dtype == "bfloat16" else 4
+    seen = int(sum(min(int(n), window) if window else int(n)
+                   for n in lens))
+    return (lambda: decode_bhd(q, kc, vc, pos, window=window),
+            lambda: decode_bhd(q, kc, vc, pos, window=window,
+                               use_kernel=False),
+            library, (2 * seen * hkv * d + 2 * b * h * d) * size + 4 * b,
+            4 * d * h * seen)
+
+
+def phase_attention_kernels(torch, np):
+    """flash_attention and decode_attention (kernels) vs their plain
+    versions on the card; SDPA timed beside them. Returns the kernels
+    line rows of the main-path shapes."""
+    rows = {}
+    for name, cases, main_case, make in (
+            ("flash_attention", FLASH_CASES, FLASH_MAIN, _flash_case),
+            ("decode_attention", DECODE_CASES, DECODE_MAIN, _decode_case)):
+        for case in cases:
+            b, h, hkv, s, d, window, dtype = case
+            kernel, plain, library, nbytes, ops = make(torch, np, case)
+            out, ref, lib = kernel(), plain(), library()
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            ok = bool(torch.allclose(out.float(), ref.float(),
+                                     **attention_tol(dtype)))
+            if not ok or not torch.isfinite(out).all():
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {case}: max_abs_err "
+                                     f"{err:.3e}")
+            lib_err = float((lib.float() - ref.float()).abs().max())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / _peak(dtype) * 1e3
+            row = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
+                   "wrapper_ms": eager_ms(kernel),
+                   "plain_eager_ms": eager_ms(plain),
+                   "library_ms": graph_ms(library), "max_abs_err": err,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations"}
+            log(f"[{name}] b={b} h={h} hkv={hkv} s={s} d={d} "
+                f"window={window} {dtype}: max_abs_err {err:.3e} "
+                f"({attention_tol(dtype)}) ok; per call on the device "
+                f"(CUDA graph) kernel {row['ms'] * 1e3:.3f} us, plain "
+                f"{row['plain_ms'] * 1e3:.3f} us, SDPA "
+                f"{row['library_ms'] * 1e3:.3f} us (its max_abs_err vs "
+                f"plain {lib_err:.3e}); eager wrapper "
+                f"{row['wrapper_ms'] * 1e3:.2f} us; bound "
+                f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+            if case == main_case:
+                rows[name] = row
+    return rows
 
 
 def phase_fleet(torch, kernels):
@@ -258,6 +455,197 @@ def phase_fleet(torch, kernels):
     return launches
 
 
+def phase_serve(torch, np, kernels):
+    """Llama-3-8B served on the card through the port's engine; then the
+    kernel path held against the plain path. `kernels`: the `CudaKernel`
+    of both attention kernels, flash first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import InferenceEngine
+
+    flash, dec = kernels
+    cfg = get_config(SERVE["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}: "
+        f"{n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB) "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+
+    def engine():
+        return InferenceEngine(
+            model, max_batch=SERVE["max_batch"], max_len=SERVE["max_len"],
+            policy=SERVE["policy"], num_host_cores=SERVE["host_cores"])
+
+    warm = engine()                    # cuBLAS handles, allocator pools
+    warm.submit(list(range(SERVE["prompt_lens"][0])), max_new_tokens=2)
+    warm.run_until_drained()
+    del warm
+
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt_lens"]
+    lens = rng.integers(lo, hi + 1, SERVE["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    eng = engine()
+    prefill_s, decode_iters = [0.0], [0]
+    real_prefill, real_decode = eng._prefill_fn, eng._decode_fn
+
+    def timed_prefill(tokens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(tokens)
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t
+        return out
+
+    def counted_decode(*args):
+        decode_iters[0] += 1
+        return real_decode(*args)
+
+    eng._prefill_fn, eng._decode_fn = timed_prefill, counted_decode
+    flash.launches = dec.launches = 0
+    t0 = time.perf_counter()
+    reqs = []
+    for prompt in prompts:
+        eng.submit(prompt, max_new_tokens=SERVE["new_tokens"])
+        reqs.append(eng.pending[-1])
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash.launches,
+                "decode_attention": dec.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    new = SERVE["requests"] * SERVE["new_tokens"]
+    decode_tokens = new - SERVE["requests"]   # the first comes of prefill
+    decode_s = wall - prefill_s[0]
+    log(f"[serve] {SERVE['requests']} requests, prompts "
+        f"{sorted(int(n) for n in lens)} tokens, {SERVE['new_tokens']} new "
+        f"each: wall {wall:.3f} s ({new / wall:.1f} tok/s); prefill "
+        f"{prefill_s[0]:.3f} s for {int(lens.sum())} prompt tokens "
+        f"({lens.sum() / prefill_s[0]:.1f} tok/s); decode {decode_s:.3f} s, "
+        f"{decode_iters[0]} iterations, {decode_tokens} tokens "
+        f"({decode_tokens / decode_s:.1f} tok/s, "
+        f"{decode_s / decode_iters[0] * 1e3:.2f} ms per iteration)")
+    rep = eng.host_cpu_report()
+    log(f"[serve] host CPU [{rep['policy']}]: cores_active="
+        f"{rep['active_cores']}/{SERVE['host_cores']} cv={rep['cv']:.4f} "
+        f"mean_freq_degradation={rep['mean_degradation']:.5f} "
+        f"cpu_tasks={rep['assigns']}")
+    log(f"[serve] launches {launches} (expected flash "
+        f"{cfg.num_layers} x {SERVE['requests']} requests, decode "
+        f"{cfg.num_layers} x {decode_iters[0]} iterations); peak device "
+        f"memory {peak_gb:.2f} GB")
+    if launches["flash_attention"] != cfg.num_layers * SERVE["requests"] \
+            or launches["decode_attention"] != \
+            cfg.num_layers * decode_iters[0] or min(launches.values()) == 0:
+        raise AssertionError(f"the serve path did not run through both "
+                             f"kernels as expected: {launches}")
+    if any(len(r.output) != SERVE["new_tokens"] for r in reqs) or any(
+            not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        raise AssertionError("a request did not get its tokens")
+
+    tokens = [req.output for req in reqs]
+    del eng, reqs
+    _hold_bf16(torch, model, prompts, tokens)
+    del model
+    torch.cuda.empty_cache()
+    _hold_f32(torch, cfg, prompts, tokens)
+    return launches
+
+
+def _teacher_forced(torch, model, prompt, tokens, use_kernel):
+    """The model's logits (vocab only, float32) at every step of one
+    request: its prompt through `prefill`, then the engine's tokens one by
+    one through `decode_step`."""
+    vocab = model.cfg.vocab_size
+    toks = torch.tensor([prompt], device="cuda")
+    logits, cache = model.prefill(toks, max_len=len(prompt) + len(tokens),
+                                  use_kernel=use_kernel)
+    steps = [logits[0, -1, :vocab].float()]
+    for tok in tokens[:-1]:
+        logits, cache = model.decode_step(
+            cache, torch.tensor([[tok]], device="cuda"),
+            use_kernel=use_kernel)
+        steps.append(logits[0, -1, :vocab].float())
+    out = torch.stack(steps)
+    if not torch.isfinite(out).all():
+        raise AssertionError("logits are not finite")
+    return out
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm(dim=-1) / b.norm(dim=-1)).amax().item()
+
+
+def _hold_bf16(torch, model, prompts, tokens):
+    """bfloat16: kernel path vs plain path, against the noise floor."""
+    t0 = time.perf_counter()
+    kernel_d, noise_d, max_err, flips, steps = 0.0, 0.0, 0.0, 0, 0
+    plains = []
+    for prompt, toks in zip(prompts, tokens):
+        k = _teacher_forced(torch, model, prompt, toks, True)
+        p = _teacher_forced(torch, model, prompt, toks, False)
+        kernel_d = max(kernel_d, _rel_l2(k, p))
+        max_err = max(max_err, float((k - p).abs().max()))
+        flips += int((p.argmax(-1) != torch.tensor(toks, device="cuda"))
+                     .sum())
+        steps += len(toks)
+        plains.append(p)
+    table = model.embed.data
+    noise = torch.randn(table.shape, generator=torch.Generator(
+        "cuda").manual_seed(1), device="cuda")
+    model.embed.data = (table.float() * (1 + NOISE_REL * noise)).to(
+        table.dtype)
+    del noise
+    try:
+        for prompt, toks, p in zip(prompts, tokens, plains):
+            noisy = _teacher_forced(torch, model, prompt, toks, False)
+            noise_d = max(noise_d, _rel_l2(noisy, p))
+    finally:
+        model.embed.data = table
+    log(f"[serve] bfloat16, kernel vs plain path on the engine's tokens: "
+        f"{steps} steps, max |logit diff| {max_err:.4f}, max relative L2 "
+        f"{kernel_d:.4e}; noise floor (plain path, embeddings perturbed by "
+        f"{NOISE_REL:.3g} relative) {noise_d:.4e}; plain greedy tokens that "
+        f"differ from the engine's: {flips}/{steps} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not kernel_d <= noise_d:
+        raise AssertionError(f"kernel path leaves the bfloat16 noise floor: "
+                             f"{kernel_d:.4e} > {noise_d:.4e}")
+
+
+def _hold_f32(torch, cfg, prompts, tokens):
+    """float32 at full width: kernel path vs plain path, tight."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    model = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+                  seed=1)
+    worst, max_err, steps = -math.inf, 0.0, 0
+    for prompt, toks in list(zip(prompts, tokens))[:F32_REQUESTS]:
+        k = _teacher_forced(torch, model, prompt, toks, True)
+        p = _teacher_forced(torch, model, prompt, toks, False)
+        diff = (k - p).abs()
+        max_err = max(max_err, float(diff.max()))
+        worst = max(worst, float((diff - F32_ATOL - F32_RTOL * p.abs())
+                                 .max()))
+        steps += len(toks)
+    log(f"[serve] float32 at full width, kernel vs plain path: {steps} "
+        f"steps of {F32_REQUESTS} requests, max |logit diff| {max_err:.3e} "
+        f"(bound {F32_ATOL} + {F32_RTOL} |plain|, worst margin "
+        f"{worst:.3e}) ({time.perf_counter() - t0:.1f} s)")
+    del model
+    torch.cuda.empty_cache()
+    if worst > 0:
+        raise AssertionError(f"float32 kernel path leaves the bound "
+                             f"(worst margin {worst:.3e})")
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -269,18 +657,36 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.aging import DEFAULT_PARAMS
-    from repro_torch.kernels.aging_update.ops import KERNEL
+    from repro_torch.kernels.aging_update.ops import KERNEL as AGING
+    from repro_torch.kernels.decode_attention.ops import KERNEL as DECODE
+    from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
 
-    phase_environment(torch, KERNEL)
+    phase_environment(torch, (AGING, FLASH, DECODE))
     aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS)
-    launches = phase_fleet(torch, (KERNEL,))
-    line = {"kernels": [dict({
-        "name": "aging_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/aging_update/aging_update.cu",
-        "replaces": "src/repro/kernels/aging_update/aging_update.py:41",
-        "launches": launches["aging_update"], "library_ms": None},
-        **aging_row)]}
-    print(json.dumps(line), flush=True)
+    attention_rows = phase_attention_kernels(torch, np)
+    launches = phase_fleet(torch, (AGING,))
+    launches.update(phase_serve(torch, np, (FLASH, DECODE)))
+    src_dir = "src/repro_torch/kernels"
+    kernels = [
+        dict({"name": "aging_update", "route": "cuda",
+              "source": f"{src_dir}/aging_update/aging_update.cu",
+              "replaces": "src/repro/kernels/aging_update/aging_update.py:41",
+              "launches": launches["aging_update"], "library_ms": None},
+             **aging_row),
+        dict({"name": "flash_attention", "route": "cuda",
+              "source": f"{src_dir}/flash_attention/flash_attention.cu",
+              "replaces":
+                  "src/repro/kernels/flash_attention/flash_attention.py:72",
+              "launches": launches["flash_attention"]},
+             **attention_rows["flash_attention"]),
+        dict({"name": "decode_attention", "route": "cuda",
+              "source": f"{src_dir}/decode_attention/decode_attention.cu",
+              "replaces":
+                  "src/repro/kernels/decode_attention/decode_attention.py:71",
+              "launches": launches["decode_attention"]},
+             **attention_rows["decode_attention"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,7 +21,9 @@ _P, _F = ctypes.c_void_p, ctypes.c_float
 KERNEL = CudaKernel(
     "aging_update", Path(__file__).with_name("aging_update.cu"),
     "aging_update_launch",
-    [_P, _P, _P, _P, _P, ctypes.c_int64, _F, _F, _F, _F, _F, _F, _P])
+    [_P, _P, _P, _P, _P, ctypes.c_int64, _F, _F, _F, _F, _F, _F, _P],
+    # no fused multiply-add: each float op rounds as in the plain version
+    flags=("--fmad=false",))
 
 
 def _check(tensors) -> None:

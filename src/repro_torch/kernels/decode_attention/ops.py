@@ -1,0 +1,135 @@
+"""Public wrapper of the decode_attention kernel (the counterpart of
+`repro.kernels.decode_attention.ops.decode_bhd`).
+
+On CUDA tensors it launches the hand-written split-KV kernel and its
+merge (`decode_attention.cu`, one C call, counted as one launch) on the
+current stream; on CPU tensors, or with `use_kernel=False`, it runs the
+plain PyTorch version (`ref.py`). There is no other fallback: any other
+device, dtype, head_dim or layout raises. `pos` stays on the device:
+nothing on the path reads it back to the host.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref_explicit)
+from repro_torch.kernels.flash_attention.ops import (DTYPES, HEAD_DIMS,
+                                                     _aligned)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = CudaKernel(
+    "decode_attention", Path(__file__).with_name("decode_attention.cu"),
+    "decode_attention_launch",
+    [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I, _I,
+     _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
+
+MAX_GROUPS = 16      # query heads per cache head the kernel holds
+SMS = 132            # streaming multiprocessors of an H100 SXM
+BLOCK_K = 64         # keys per tile of the split pass
+
+
+def n_splits(batch: int, n_kv_heads: int, max_len: int) -> int:
+    """Slices per (sequence, cache head): enough CTAs for two per SM,
+    and no more slices than 64-key tiles in the cache."""
+    want = -(-2 * SMS // max(batch * n_kv_heads, 1))
+    return max(1, min(want, -(-max_len // BLOCK_K)))
+
+
+def _check(q, k_cache, v_cache) -> None:
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"decode_bhd: {name} must be a tensor, got "
+                            f"{type(t).__name__}")
+        if t.device != q.device:
+            raise ValueError(f"decode_bhd: {name} is on {t.device}, q on "
+                             f"{q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"decode_bhd: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"decode_bhd: q must be (B, H, D) and the caches "
+                         f"(B, S, Hkv, D), got {tuple(q.shape)} and "
+                         f"{tuple(k_cache.shape)}")
+    b, h, d = q.shape
+    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != b
+            or k_cache.shape[3] != d):
+        raise ValueError(f"decode_bhd: caches {tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if k_cache.shape[2] == 0 or h % k_cache.shape[2]:
+        raise ValueError(f"decode_bhd: {h} query heads do not group over "
+                         f"{k_cache.shape[2]} cache heads")
+
+
+def _positions(pos, batch: int, device) -> torch.Tensor:
+    """`pos` (int, 0-d or (B,)) as a contiguous (B,) int32 tensor on
+    `device`, without a host round trip."""
+    pos = torch.as_tensor(pos, device=device).to(torch.int32)
+    if pos.dim() == 0:
+        pos = pos.expand(batch)
+    if pos.shape != (batch,):
+        raise ValueError(f"decode_bhd: pos must be () or ({batch},), got "
+                         f"{tuple(pos.shape)}")
+    return pos.contiguous()
+
+
+def launch(q, k_cache, v_cache, pos, out, *, window, scale, stream) -> int:
+    """Launch the split pass and the merge on `stream` for checked
+    tensors; returns the CUDA error code (0: accepted)."""
+    b, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    split = n_splits(b, hkv, s)
+    parts = b * hkv * split * (h // hkv)
+    work = torch.empty(parts * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    acc, m, l = work[:parts * d], work[parts * d:parts * (d + 1)], \
+        work[parts * (d + 1):]
+    strides = (ctypes.c_int64 * 10)(
+        *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
+        *out.stride()[:2])
+    return KERNEL.function()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), strides,
+        b, h, hkv, s, d, DTYPES[q.dtype], window, split, scale, stream)
+
+
+def decode_bhd(q, k_cache, v_cache, pos, *, window=0, use_kernel=True,
+               scale=None):
+    """q: (B, H, D); caches (B, S, Hkv, D); pos () or (B,) valid lengths
+    (the current token already written at pos - 1). Returns (B, H, D) in
+    q's dtype. `scale` defaults to D ** -0.5 (Python double, rounded to
+    float32 by the kernel)."""
+    _check(q, k_cache, v_cache)
+    b, h, d = q.shape
+    pos = _positions(pos, b, q.device)
+    scale = d ** -0.5 if scale is None else scale
+    if not use_kernel or q.device.type == "cpu":
+        return decode_attention_ref_explicit(q, k_cache, v_cache, pos,
+                                             window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_bhd: no kernel for device {q.device}")
+    if q.dtype not in DTYPES or d not in HEAD_DIMS:
+        raise ValueError(f"decode_bhd: the kernel takes float32 or "
+                         f"bfloat16 with head_dim in {HEAD_DIMS}, got "
+                         f"{q.dtype}, head_dim {d}")
+    if h // k_cache.shape[2] > MAX_GROUPS:
+        raise ValueError(f"decode_bhd: the kernel holds at most "
+                         f"{MAX_GROUPS} query heads per cache head, got "
+                         f"{h // k_cache.shape[2]}")
+    q, k_cache, v_cache = _aligned(q), _aligned(k_cache), _aligned(v_cache)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = launch(q, k_cache, v_cache, pos, out, window=window,
+                     scale=scale,
+                     stream=torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error "
+                           f"{err}")
+    KERNEL.launches += 1
+    return out

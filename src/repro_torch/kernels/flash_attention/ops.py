@@ -1,0 +1,113 @@
+"""Public wrapper of the flash_attention kernel (the counterpart of
+`repro.kernels.flash_attention.ops.attention_bhsd`).
+
+On CUDA tensors it launches the hand-written kernel
+(`flash_attention.cu`) on the current stream; on CPU tensors, or with
+`use_kernel=False`, it runs the plain PyTorch version (`ref.py`). There is
+no other fallback: any other device, dtype, head_dim or layout raises.
+The kernel reads the model's (B, S, H, D) layout through its strides, and
+masks keys by length, so nothing is padded, sliced or transposed.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = CudaKernel(
+    "flash_attention", Path(__file__).with_name("flash_attention.cu"),
+    "flash_attention_launch",
+    [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I, _I, _I, _I, _I, _I,
+     _I, _I, _I, _I, ctypes.c_float, _P])
+
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"attention_bhsd: {name} must be a tensor, got "
+                            f"{type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"attention_bhsd: {name} must be (B, S, H, "
+                             f"D), got shape {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"attention_bhsd: {name} is on {t.device}, q "
+                             f"on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"attention_bhsd: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"attention_bhsd: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"attention_bhsd: {h} query heads do not group "
+                         f"over {k.shape[2]} KV heads")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself if the kernel's 16-byte row loads may read it in place
+    (unit stride on head_dim, rows and base 16-byte aligned), else a
+    contiguous copy."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def launch(q, k, v, out, *, causal, window, scale, q_offset, stream) -> int:
+    """Launch the kernel on `stream` for checked (B, S, H, D) tensors;
+    returns the CUDA error code (0: accepted)."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    strides = (ctypes.c_int64 * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3])
+    return KERNEL.function()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        b, h, hkv, sq, skv, d, DTYPES[q.dtype], q_offset, int(causal),
+        window, scale, stream)
+
+
+def attention_bhsd(q, k, v, *, causal=True, window=0, use_kernel=True,
+                   scale=None, q_offset=0):
+    """Flash attention in (B, S, H, D) model layout. GQA-aware.
+
+    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) with H % Hkv == 0. Returns
+    (B, Sq, H, D) in q's dtype. `scale` defaults to D ** -0.5, formed in
+    Python double and rounded to float32, as the reference forms it.
+    """
+    _check(q, k, v)
+    d = q.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    if not use_kernel or q.device.type == "cpu":
+        out = flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, scale=scale, q_offset=q_offset)
+        return out.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bhsd: no kernel for device {q.device}")
+    if q.dtype not in DTYPES or d not in HEAD_DIMS:
+        raise ValueError(f"attention_bhsd: the kernel takes float32 or "
+                         f"bfloat16 with head_dim in {HEAD_DIMS}, got "
+                         f"{q.dtype}, head_dim {d}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = launch(q, k, v, out, causal=causal, window=window,
+                     scale=scale, q_offset=q_offset,
+                     stream=torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error "
+                           f"{err}")
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,218 @@
+"""Continuous-batching inference engine with aging-aware host-CPU core
+management — the paper's technique as a first-class serving feature (the
+counterpart of `repro.serving.engine`).
+
+The engine owns a fixed pool of batch slots backed by one device-resident
+KV cache (per-slot positions), performs ORCA-style iteration-level
+scheduling, and routes every host-side operation through a `CoreManager`
+(Table-2 task taxonomy): request submission -> `submit`, slot allocation
+-> `alloc_memory`, each batched decode iteration -> `start_iteration`,
+completion -> `finish_request`/`free_memory`. The manager's Selective
+Core Idling runs on a wall-clock period, so an idle engine deep-idles its
+host cores (age-halting) and a bursty one wakes them.
+
+Differences from the reference: the model (`repro_torch.models.Model`)
+carries its own weights, so the engine takes no `params`; the KV cache
+is updated in place; there is no telemetry hub yet (ROADMAP A5).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import CoreManager, CorePolicy
+from repro_torch.models import Model
+from repro_torch.sim.tasks import TaskIdAllocator
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: list[int]
+    max_new_tokens: int
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class InferenceEngine:
+    """Serves requests on `model`'s device.
+
+    `greedy=False` samples with a `torch.Generator` seeded from
+    `sample_seed`: reproducible for a seed, but not the reference's
+    `jax.random` draws.
+    """
+
+    def __init__(self, model: Model, max_batch: int = 8,
+                 max_len: int = 256,
+                 policy: CorePolicy | str = "proposed",
+                 num_host_cores: int = 16,
+                 eos_id: int | None = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 greedy: bool = True, temperature: float = 1.0,
+                 sample_seed: int = 0, telemetry=None):
+        cfg = model.cfg
+        if cfg.family in ("hybrid", "audio") or cfg.is_encdec:
+            raise NotImplementedError(
+                "engine batching supports decoder-only families "
+                "(dense/moe/vlm/ssm); use Model.decode_step directly")
+        self.model = model
+        self.device = model.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.greedy = greedy
+        self.temperature = temperature
+        self._sample_gen = torch.Generator(
+            device=self.device).manual_seed(sample_seed)
+        self.clock = clock
+        self._t0 = clock()
+        self.telemetry = telemetry
+        self.core_manager = CoreManager(num_host_cores, policy=policy,
+                                        rng=np.random.default_rng(0),
+                                        telemetry=telemetry)
+        self._task_ids = TaskIdAllocator()   # per-engine CPU-task id stream
+        self._last_idle_check = 0.0
+
+        self.slots: list[Request | None] = [None] * max_batch
+        self.pending: list[Request] = []
+        self.cache = self._empty_cache()
+        self.tokens = torch.zeros((max_batch, 1), dtype=torch.int32,
+                                  device=self.device)
+        self.active_mask = np.zeros(max_batch, bool)
+        self._next_id = 0
+
+    # ------------------------- device functions ------------------------ #
+    def _empty_cache(self):
+        cfg = self.model.cfg
+        ring = cfg.swa_ring and cfg.sliding_window
+        shape = (cfg.num_layers, self.max_batch,
+                 cfg.sliding_window if ring else self.max_len,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=self.model.dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=self.model.dtype,
+                                 device=self.device),
+                "pos": torch.zeros(self.max_batch, dtype=torch.int32,
+                                   device=self.device)}
+
+    def _prefill_fn(self, tokens):
+        return self.model.prefill(tokens, max_len=self.max_len)
+
+    def _decode_fn(self, cache, tokens, active):
+        old_pos = cache["pos"]
+        logits, new_cache = self.model.decode_step(cache, tokens)
+        # inactive slots must not advance their position
+        new_cache["pos"] = torch.where(active, new_cache["pos"], old_pos)
+        return logits, new_cache
+
+    # ----------------------------- host API ---------------------------- #
+    def _now(self) -> float:
+        return self.clock() - self._t0
+
+    def _cpu_task(self, name: str) -> None:
+        """Account one Table-2 host task against the core manager."""
+        task = self._task_ids.new(name)
+        t = self._now()
+        self.core_manager.assign(task.task_id, t)
+        self.core_manager.release(task.task_id, t + task.duration_s)
+
+    def _periodic(self) -> None:
+        t = self._now()
+        if t - self._last_idle_check >= self.core_manager.idling_period_s:
+            self.core_manager.periodic(t)
+            self._last_idle_check = t
+
+    def submit(self, prompt: list[int], max_new_tokens: int = 32) -> int:
+        self._cpu_task("submit")
+        req = Request(self._next_id, list(prompt), max_new_tokens)
+        self._next_id += 1
+        self.pending.append(req)
+        return req.req_id
+
+    def _admit(self) -> None:
+        for i in range(self.max_batch):
+            if self.slots[i] is not None or not self.pending:
+                continue
+            req = self.pending.pop(0)
+            self._cpu_task("alloc_memory")
+            toks = torch.tensor([req.prompt], dtype=torch.int32,
+                                device=self.device)
+            logits, pcache = self._prefill_fn(toks)
+            # splice the single-row prefill cache into slot i; this also
+            # overwrites what the slot wrote while it was inactive
+            self.cache["k"][:, i] = pcache["k"][:, 0]
+            self.cache["v"][:, i] = pcache["v"][:, 0]
+            self.cache["pos"][i] = len(req.prompt)
+            first = self._select_token(logits[:, -1])
+            req.output.append(int(first[0]))
+            self.tokens[i, 0] = first[0]
+            self.slots[i] = req
+            self.active_mask[i] = True
+
+    def _select_token(self, logits_row: torch.Tensor) -> torch.Tensor:
+        v = self.model.cfg.vocab_size
+        logits_row = logits_row[..., :v]
+        if self.greedy:
+            return torch.argmax(logits_row, -1).to(torch.int32)
+        probs = torch.softmax(logits_row.float() / self.temperature, -1)
+        return torch.multinomial(probs, 1, generator=self._sample_gen)[
+            ..., 0].to(torch.int32)
+
+    def step(self) -> list[tuple[int, int]]:
+        """One engine iteration: admit pending, batched decode, retire
+        finished. Returns [(req_id, new_token), ...]."""
+        self._periodic()
+        self._admit()
+        if not self.active_mask.any():
+            return []
+        self._cpu_task("start_iteration")
+        active = torch.as_tensor(self.active_mask, device=self.device)
+        logits, self.cache = self._decode_fn(self.cache, self.tokens,
+                                             active)
+        new_tokens = self._select_token(logits[:, 0])
+        # every occupied slot takes its new token (one device op)
+        self.tokens = torch.where(active[:, None], new_tokens[:, None],
+                                  self.tokens)
+        host_tokens = new_tokens.tolist()
+        out = []
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tok = host_tokens[i]
+            req.output.append(tok)
+            out.append((req.req_id, tok))
+            hit_eos = self.eos_id is not None and tok == self.eos_id
+            if len(req.output) >= req.max_new_tokens or hit_eos:
+                req.done = True
+                self._cpu_task("finish_request")
+                self._cpu_task("free_memory")
+                self.slots[i] = None
+                self.active_mask[i] = False
+        return out
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.pending and not self.active_mask.any():
+                return
+            self.step()
+        raise RuntimeError("engine did not drain")
+
+    # -------------------------- observability -------------------------- #
+    def host_cpu_report(self) -> dict:
+        m = self.core_manager
+        return {
+            "policy": m.policy_name,
+            "frequencies": m.frequencies(self._now()).tolist(),
+            "cv": m.frequency_cv(),
+            "mean_degradation": m.mean_frequency_degradation(),
+            "active_cores": int((m.c_state == 0).sum()),
+            "assigns": m.metrics.assigns,
+        }
+
+    def prometheus_text(self) -> str:
+        raise NotImplementedError("prometheus_text needs the telemetry hub, "
+                                  "which is not ported yet (ROADMAP A5)")

@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the fleet engine on CUDA against the same engine on the
-CPU. Every test here needs an NVIDIA GPU and skips without one; this
+version, the fleet engine on CUDA against the same engine on the CPU,
+and the dense model and serving engine through the attention kernels. Every test here needs an NVIDIA GPU and skips without one; this
 file imports neither jax nor the reference, so it runs on a machine
 that has only the port's dependencies:
 
@@ -8,13 +8,20 @@ that has only the port's dependencies:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.aging import DEFAULT_PARAMS
 from repro_torch.kernels.aging_update import ops
 from repro_torch.kernels.aging_update.ref import aging_update_ref
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import Model
+from repro_torch.serving.engine import InferenceEngine
 from repro_torch.sim import ExperimentConfig, run_experiment
 
 pytestmark = pytest.mark.cuda
@@ -70,3 +77,98 @@ def test_fleet_on_cuda_matches_cpu(cuda_device):
                  (on_gpu.mean_degradation_percentiles[50],
                   on_cpu.mean_degradation_percentiles[50])):
         assert _rel(a, b) < 1e-5
+
+
+def _tol(dtype):
+    """`tests/test_kernels.py::tol`."""
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _draw(device, dtype, seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                         device=device).to(dtype) for s in shapes]
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (1, 4, 4, 128, 64, 0), (2, 8, 2, 256, 64, 0), (1, 4, 1, 128, 128, 0),
+    (2, 2, 2, 192, 64, 0), (1, 2, 2, 256, 64, 32), (1, 2, 2, 256, 64, 128),
+    (1, 32, 8, 128, 128, 0), (1, 32, 8, 1000, 128, 0),
+    (1, 32, 8, 1024, 128, 0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_matches_plain_version(cuda_device, b, h, hkv, s, d,
+                                            window, dtype):
+    q, k, v = _draw(cuda_device, dtype, 0, (b, s, h, d), (b, s, hkv, d),
+                    (b, s, hkv, d))
+    before = fa_ops.KERNEL.launches
+    out = fa_ops.attention_bhsd(q, k, v, window=window)
+    assert fa_ops.KERNEL.launches == before + 1
+    ref = fa_ops.attention_bhsd(q, k, v, window=window, use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (1, 4, 4, 512, 64, 0), (4, 8, 2, 1024, 64, 0), (2, 8, 1, 512, 128, 0),
+    (2, 4, 4, 640, 64, 0), (2, 4, 4, 512, 64, 128),
+    (4, 32, 8, 1536, 128, 0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_matches_plain_version(cuda_device, b, h, hkv, s, d,
+                                             window, dtype):
+    q, kc, vc = _draw(cuda_device, dtype, 1, (b, h, d), (b, s, hkv, d),
+                      (b, s, hkv, d))
+    pos = torch.tensor(np.random.default_rng(s).integers(1, s + 1, b),
+                       dtype=torch.int32, device=cuda_device)
+    before = dec_ops.KERNEL.launches
+    out = dec_ops.decode_bhd(q, kc, vc, pos, window=window)
+    assert dec_ops.KERNEL.launches == before + 1
+    ref = dec_ops.decode_bhd(q, kc, vc, pos, window=window,
+                             use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+def test_model_goes_through_both_kernels(cuda_device):
+    """Prefill: one flash launch per layer; decode: one decode launch per
+    layer. The plain path agrees at float32 to the kernels' bound."""
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    model = Model(cfg, device=cuda_device, seed=0)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, 1000, (2, 40)),
+                        device=cuda_device)
+    fa_ops.KERNEL.launches = dec_ops.KERNEL.launches = 0
+    logits, cache = model.prefill(toks, max_len=48)
+    plain, plain_cache = model.prefill(toks, max_len=48, use_kernel=False)
+    tok = toks[:, -1:]
+    for _ in range(3):
+        logits, cache = model.decode_step(cache, tok)
+        plain, plain_cache = model.decode_step(plain_cache, tok,
+                                               use_kernel=False)
+        torch.testing.assert_close(logits, plain, rtol=1e-4, atol=1e-4)
+    assert fa_ops.KERNEL.launches == cfg.num_layers
+    assert dec_ops.KERNEL.launches == 3 * cfg.num_layers
+
+
+def test_engine_on_cuda_matches_cpu(cuda_device):
+    """Same weights, same prompts: the engine on the card (through both
+    kernels) gives the CPU engine's greedy tokens at float32."""
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    on_gpu = Model(cfg, device=cuda_device, seed=0)
+    on_gpu.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 999, n).tolist() for n in (5, 12, 7, 9)]
+    outputs = []
+    for model in (on_cpu, on_gpu):
+        eng = InferenceEngine(model, max_batch=2, max_len=32,
+                              clock=lambda: 0.0)
+        reqs = []
+        for p in prompts:
+            eng.submit(p, 5)
+            reqs.append(eng.pending[-1])
+        eng.run_until_drained()
+        outputs.append([r.output for r in reqs])
+    assert outputs[0] == outputs[1]

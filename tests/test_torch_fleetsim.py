@@ -1,12 +1,9 @@
 """Fleet engine of the port (`repro_torch.sim.fleetsim`) against the
 reference (`repro.sim.fleetsim`), on the CPU.
 
-The reference simulator does not import on Python 3.12 (ROADMAP R1:
-`IdleCorrection` has ndarray dataclass defaults), so it runs in one
-child interpreter per module, under a shim that the child installs only
-in itself before it imports `repro`. The child returns
-`ExperimentResult.to_dict()` as JSON and fleet states as `.npz`. Nothing
-of `repro.core` or `repro.sim` is imported into the pytest process.
+The reference simulator does not import on Python 3.12 (ROADMAP R1), so
+it runs in one child interpreter per module (`torch_harness`). The child
+returns `ExperimentResult.to_dict()` as JSON and fleet states as `.npz`.
 
 - The port's numpy backend equals the reference's numpy backend
   exactly: every `to_dict()` field, `config_hash` included; only
@@ -23,21 +20,16 @@ of `repro.core` or `repro.sim` is imported into the pytest process.
 from __future__ import annotations
 
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_harness import run_reference
 
 from repro_torch.kernels.aging_update import ops as aging_ops
 from repro_torch.sim import (ExperimentConfig, FleetEngine, run_experiment,
                              run_policy_sweep, state_from_numpy,
                              state_to_numpy)
 from repro_torch.workloads import get_scenario
-
-REPO = Path(__file__).resolve().parents[1]
 
 # (name, ExperimentConfig kwargs) — 22 machines x 60 s at 60 rps
 CONFIGS = {
@@ -59,23 +51,10 @@ AGREE_RTOL = 1e-6
 STATE_MACRO = 20
 
 _CHILD = r'''
-import dataclasses, json, sys
-import numpy as np
-
-# R1 shim: turn ndarray dataclass defaults into default factories.
-_orig = dataclasses._get_field
-def _get_field(cls, a_name, a_type, default_kw_only):
-    default = cls.__dict__.get(a_name, dataclasses.MISSING)
-    if isinstance(default, np.ndarray):
-        setattr(cls, a_name, dataclasses.field(default_factory=default.copy))
-    return _orig(cls, a_name, a_type, default_kw_only)
-dataclasses._get_field = _get_field
-
 from repro.sim import ExperimentConfig, run_experiment
 from repro.sim.fleetsim import FleetEngine
 from repro.workloads import get_scenario
 
-job = json.load(sys.stdin)
 out = {"results": []}
 for cfg_kw, eng_kw in job["runs"]:
     cfg = ExperimentConfig(**cfg_kw).with_engine("fleet", **eng_kw)
@@ -119,13 +98,7 @@ def reference(tmp_path_factory):
             + [(MIXED, {"backend": "numpy"})])
     job = {"runs": runs, "state_macro": STATE_MACRO,
            "state_path": state_path}
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=str(REPO / "src"))
-    proc = subprocess.run([sys.executable, "-c", _CHILD],
-                          input=json.dumps(job), capture_output=True,
-                          text=True, env=env, cwd=REPO, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    results = json.loads(proc.stdout)["results"]
+    results = run_reference(_CHILD, job)["results"]
     n = len(CONFIGS)
     names = list(CONFIGS)
     states = {tag: dict(np.load(f"{state_path}_{tag}.npz"))

@@ -1,8 +1,8 @@
 """The port stands alone: no module of `src/repro_torch` or
 `benchmarks_torch`, and not `chip_smoke.py`, imports `jax` or the
-reference package `repro`; and
-without CUDA the port's GPU entry points refuse to run rather than fall
-back to the CPU."""
+reference package `repro`; and without CUDA the port's GPU entry points
+(the fleet engine, `launch.serve`, `chip_smoke.py`) refuse to run rather
+than fall back to the CPU."""
 from __future__ import annotations
 
 import ast
@@ -44,6 +44,8 @@ def test_imports_neither_jax_nor_reference(path):
 def test_import_leaves_reference_unloaded():
     code = ("import sys, repro_torch.sim, repro_torch.kernels;"
             "import repro_torch.kernels.aging_update.ops;"
+            "import repro_torch.models, repro_torch.configs, repro_torch.core;"
+            "import repro_torch.serving.engine, repro_torch.launch.serve;"
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -58,6 +60,20 @@ def test_default_device_without_cuda_raises(monkeypatch):
     cfg = ExperimentConfig(duration_s=1.0).with_engine("fleet")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_experiment(cfg)
+
+
+def test_serve_without_cuda_refuses():
+    """`launch.serve` runs on the card unless `--device cpu`: with no
+    CUDA it raises rather than falling back to the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "llama3-8b", "--smoke", "--requests", "1", "--new-tokens", "1"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "served" not in proc.stdout
 
 
 def _run_smoke(cwd: Path, **env):

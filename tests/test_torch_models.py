@@ -1,0 +1,283 @@
+"""Models of the port (`repro_torch.models`, `repro_torch.configs`)
+against the reference (`repro.models`, `repro.configs`), on the CPU.
+
+The reference initialises its parameters (`Model.init`) and
+`params_from_jax` hands them to the port, so both compute the same
+function. Logits are compared at float32 to rtol/atol 1e-4, and at
+bfloat16 to the reference's own `test_decode_matches_prefill` bound
+(rtol 0.08, atol 0.15); the bfloat16 paths round at other places in the
+two frameworks (for one, XLA and PyTorch fuse SiLU differently).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import all_arch_names as ref_arch_names
+from repro.configs import get_config as ref_get_config
+from repro.configs import get_smoke_config as ref_get_smoke_config
+from repro.models import Model as RefModel
+from repro.models import layers as ref_layers
+from repro_torch.configs import (all_arch_names, get_config,
+                                 get_smoke_config)
+from repro_torch.models import Model, params_from_jax
+from repro_torch.models import layers
+
+BOUNDS = {"float32": dict(rtol=1e-4, atol=1e-4),
+          "bfloat16": dict(rtol=0.08, atol=0.15)}
+DENSE = ["granite-3-8b", "llama3-8b", "phi3-medium-14b"]
+UNPORTED = {"minicpm3-4b": "MLA", "mixtral-8x22b": "mixture-of-experts",
+            "granite-moe-3b-a800m": "mixture-of-experts",
+            "mamba2-2.7b": "ssm family", "zamba2-7b": "hybrid family",
+            "seamless-m4t-large-v2": "encoder-decoder",
+            "internvl2-2b": "vision frontend"}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _pair(arch: str, dtype: str, **overrides):
+    """(reference model, its params, port model with the same params)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                              **overrides)
+    ref_cfg = dataclasses.replace(ref_get_smoke_config(arch), dtype=dtype,
+                                  **overrides)
+    ref = RefModel(ref_cfg)
+    params = ref.init(jax.random.key(0))
+    port = Model(cfg, device="cpu")
+    port.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray,
+                                                           params)))
+    return ref, params, port
+
+
+class TestConfigs:
+    def test_arch_names(self):
+        assert all_arch_names() == ref_arch_names()
+
+    @pytest.mark.parametrize("arch", ref_arch_names())
+    def test_equal_to_reference(self, arch):
+        for mine, theirs in ((get_config(arch), ref_get_config(arch)),
+                             (get_smoke_config(arch),
+                              ref_get_smoke_config(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+            assert mine.param_count() == theirs.param_count()
+            assert mine.padded_vocab == theirs.padded_vocab
+
+
+class TestLayers:
+    def test_rms_norm(self):
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+        w = rng.standard_normal(64).astype(np.float32)
+        for dt, jdt in ((torch.float32, jnp.float32),
+                        (torch.bfloat16, jnp.bfloat16)):
+            out = layers.rms_norm(torch.from_numpy(x).to(dt),
+                                  torch.from_numpy(w).to(dt))
+            ref = ref_layers.rms_norm(jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+            assert out.dtype == dt
+            np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-2,
+                                       atol=1e-2 if dt == torch.bfloat16
+                                       else 1e-6)
+
+    def test_rope(self):
+        np.testing.assert_allclose(
+            layers.rope_frequencies(128, 500000.0).numpy(),
+            np.asarray(ref_layers.rope_frequencies(128, 500000.0)),
+            rtol=1e-6)
+        rng = np.random.default_rng(1)
+        x = rng.standard_normal((2, 7, 4, 32)).astype(np.float32)
+        pos = np.arange(7)[None, :] + np.array([[0], [40]])
+        out = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                                10000.0)
+        ref = ref_layers.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                    10000.0)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+
+    def test_swiglu_embed_unembed(self):
+        rng = np.random.default_rng(2)
+        x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+        wg, wu = (rng.standard_normal((16, 40)).astype(np.float32) * 0.1
+                  for _ in range(2))
+        wd = rng.standard_normal((40, 16)).astype(np.float32) * 0.1
+        np.testing.assert_allclose(
+            layers.swiglu(*map(torch.from_numpy, (x, wg, wu, wd))).numpy(),
+            np.asarray(ref_layers.swiglu(*map(jnp.asarray, (x, wg, wu, wd)))),
+            rtol=1e-5, atol=1e-5)
+        cfg = get_smoke_config("llama3-8b")
+        table = rng.standard_normal((cfg.padded_vocab, 16)).astype(
+            np.float32)
+        toks = rng.integers(0, cfg.vocab_size, (2, 3))
+        np.testing.assert_array_equal(
+            layers.embed(torch.from_numpy(toks), torch.from_numpy(table)),
+            np.asarray(ref_layers.embed(jnp.asarray(toks),
+                                        jnp.asarray(table))))
+        logits = layers.unembed(torch.from_numpy(x), torch.from_numpy(table),
+                                cfg)
+        ref = ref_layers.unembed(jnp.asarray(x), jnp.asarray(table), cfg)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+        assert (logits[..., cfg.vocab_size:] ==
+                torch.finfo(torch.float32).min).all()
+
+    def test_cross_entropy(self):
+        rng = np.random.default_rng(3)
+        logits = rng.standard_normal((2, 6, 50)).astype(np.float32)
+        labels = rng.integers(0, 50, (2, 6))
+        mask = (rng.random((2, 6)) > 0.3).astype(np.float32)
+        for m in (None, mask):
+            out = layers.cross_entropy_loss(
+                torch.from_numpy(logits), torch.from_numpy(labels),
+                None if m is None else torch.from_numpy(m))
+            ref = ref_layers.cross_entropy_loss(
+                jnp.asarray(logits), jnp.asarray(labels),
+                None if m is None else jnp.asarray(m))
+            assert float(out) == pytest.approx(float(ref), rel=1e-6)
+
+
+class TestLogitsMatchReference:
+    """Prefill, then decode steps fed with the same tokens, through both
+    models with the same parameters."""
+
+    @pytest.mark.parametrize("arch", ["llama3-8b", "granite-3-8b"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_prefill_and_decode(self, arch, dtype):
+        ref, params, port = _pair(arch, dtype)
+        vocab = port.cfg.vocab_size
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, vocab, (2, 12))
+        ref_logits, ref_cache = ref.prefill(params, jnp.asarray(toks,
+                                                                jnp.int32),
+                                            None, max_len=20)
+        logits, cache = port.prefill(torch.from_numpy(toks), max_len=20)
+        assert logits.shape == (2, 1, port.cfg.padded_vocab)
+        np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                   _np(ref_logits)[..., :vocab],
+                                   **BOUNDS[dtype])
+        np.testing.assert_allclose(_np(cache["k"]), _np(ref_cache["k"]),
+                                   **BOUNDS[dtype])
+        for _ in range(4):
+            tok = rng.integers(0, vocab, (2, 1))
+            ref_logits, ref_cache = ref.decode_step(
+                params, ref_cache, jnp.asarray(tok, jnp.int32))
+            logits, cache = port.decode_step(cache, torch.from_numpy(tok))
+            np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                       _np(ref_logits)[..., :vocab],
+                                       **BOUNDS[dtype])
+        assert int(cache["pos"]) == int(ref_cache["pos"]) == 16
+
+    def test_per_slot_positions(self):
+        """The engine's decode: a (B,) pos, one slot behind the other."""
+        ref, params, port = _pair("llama3-8b", "float32")
+        rng = np.random.default_rng(5)
+        toks = rng.integers(0, 1000, (2, 9))
+        ref_cache = ref.prefill(params, jnp.asarray(toks, jnp.int32), None,
+                                max_len=16)[1]
+        cache = port.prefill(torch.from_numpy(toks), max_len=16)[1]
+        ref_cache["pos"] = jnp.asarray([9, 5], jnp.int32)
+        cache["pos"] = torch.tensor([9, 5], dtype=torch.int32)
+        for _ in range(3):
+            tok = rng.integers(0, 1000, (2, 1))
+            ref_logits, ref_cache = ref.decode_step(
+                params, ref_cache, jnp.asarray(tok, jnp.int32))
+            logits, cache = port.decode_step(cache, torch.from_numpy(tok))
+            np.testing.assert_allclose(_np(logits)[..., :1000],
+                                       _np(ref_logits)[..., :1000],
+                                       **BOUNDS["float32"])
+        np.testing.assert_array_equal(cache["pos"].numpy(),
+                                      np.asarray(ref_cache["pos"]))
+
+    @pytest.mark.parametrize("ring", [False, True], ids=["window", "ring"])
+    def test_sliding_window(self, ring):
+        """A window of 8 over 12 prompt tokens and 6 decode steps, as a
+        masked full cache and as the `swa_ring` ring buffer."""
+        ref, params, port = _pair("llama3-8b", "float32", sliding_window=8,
+                                  swa_ring=ring)
+        rng = np.random.default_rng(6)
+        toks = rng.integers(0, 1000, (1, 12))
+        ref_logits, ref_cache = ref.prefill(
+            params, jnp.asarray(toks, jnp.int32), None, max_len=20)
+        logits, cache = port.prefill(torch.from_numpy(toks), max_len=20)
+        assert cache["k"].shape[2] == (8 if ring else 20)
+        for _ in range(6):
+            np.testing.assert_allclose(_np(logits)[..., :1000],
+                                       _np(ref_logits)[..., :1000],
+                                       **BOUNDS["float32"])
+            tok = rng.integers(0, 1000, (1, 1))
+            ref_logits, ref_cache = ref.decode_step(
+                params, ref_cache, jnp.asarray(tok, jnp.int32))
+            logits, cache = port.decode_step(cache, torch.from_numpy(tok))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_prefill(arch):
+    """`tests/test_models.py::test_decode_matches_prefill` on the port:
+    decoding token t with the cache of tokens [0..t) reproduces the
+    full-prefill logits at t (the smoke configs are bfloat16)."""
+    cfg = get_smoke_config(arch)
+    model = Model(cfg, device="cpu", seed=2)
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)))
+    full_logits, _ = model.prefill(tokens, max_len=16)
+    _, cache = model.prefill(tokens[:, :12], max_len=16)
+    for i in range(12, 16):
+        logits, cache = model.decode_step(cache, tokens[:, i:i + 1])
+    np.testing.assert_allclose(_np(logits[:, 0]), _np(full_logits[:, 0]),
+                               rtol=0.08, atol=0.15)
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_other_families_are_not_ported(arch):
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
+        Model(get_smoke_config(arch), device="cpu")
+
+
+def test_state_dict_names_match_params_from_jax():
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    params = RefModel(cfg).init(jax.random.key(0))
+    state = params_from_jax(cfg, jax.tree.map(np.asarray, params))
+    model = Model(cfg, device="cpu")
+    assert state.keys() == model.state_dict().keys()
+    for name, t in model.state_dict().items():
+        assert state[name].shape == t.shape, name
+
+
+def test_bfloat16_params_convert_bit_for_bit():
+    cfg = get_smoke_config("llama3-8b")
+    params = RefModel(cfg).init(jax.random.key(1))
+    state = params_from_jax(cfg, jax.tree.map(np.asarray, params))
+    assert state["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        state["embed"].view(torch.int16).numpy(),
+        np.asarray(params["embed"]).view(np.int16))
+
+
+def test_init_is_seeded_and_in_the_config_dtype():
+    cfg = get_smoke_config("llama3-8b")
+    a, b = Model(cfg, device="cpu", seed=3), Model(cfg, device="cpu", seed=3)
+    c = Model(cfg, device="cpu", seed=4)
+    assert a.embed.dtype == torch.bfloat16
+    assert torch.equal(a.layers[1].mlp["w_up"], b.layers[1].mlp["w_up"])
+    assert not torch.equal(a.embed, c.embed)
+    std = float(a.layers[0].attn["wq"].float().std())
+    assert 0.018 < std < 0.022
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(get_smoke_config("llama3-8b"))
+
+
+def test_training_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A13"):
+        Model(get_smoke_config("llama3-8b"), device="cpu").loss({})

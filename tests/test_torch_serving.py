@@ -1,0 +1,221 @@
+"""Serving engine of the port (`repro_torch.serving.engine`) against the
+reference, on the CPU, on the float32 smoke config of llama3-8b with the
+reference's parameters (`params_from_jax`) and a fake clock.
+
+- The port engine's greedy tokens equal the reference model's sequential
+  prefill and decode (in this process: `repro.models` imports on Python
+  3.12) and the reference `InferenceEngine`'s tokens, which runs in a
+  child interpreter (`torch_harness`: `repro.serving` imports
+  `repro.core`, which does not import here).
+- `host_cpu_report` equals the reference engine's exactly: both route
+  the same Table-2 tasks at the same fake times through equal core
+  managers.
+At float32 the two models' logits differ by about 1e-6, so greedy
+tokens agree unless two logits tie that closely.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_harness import run_reference
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models import Model as RefModel
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch import serve
+from repro_torch.models import Model, params_from_jax
+from repro_torch.serving.engine import InferenceEngine
+
+SEED = 0
+# (max_batch, max_len, policy, host cores, prompts, new tokens each)
+_rng = np.random.default_rng(1)
+CASES = {
+    # tests/test_substrate.py::TestEngine::test_engine_matches_sequential_decode
+    "sequential": (4, 32, "linux", 4,
+                   [_rng.integers(0, 999, 8).tolist() for _ in range(3)],
+                   [4, 4, 4]),
+    # more requests than slots, of several lengths: slots are reused and
+    # inactive slots keep writing at their frozen positions
+    "refill": (2, 48, "proposed", 8,
+               [_rng.integers(0, 999, n).tolist() for n in (5, 12, 7, 9, 6)],
+               [3, 6, 4, 5, 3]),
+}
+
+_CHILD = r'''
+import jax
+from repro.configs import get_smoke_config
+from repro.models import Model
+from repro.serving.engine import InferenceEngine
+
+cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
+model = Model(cfg)
+params = model.init(jax.random.key(job["seed"]))
+out = {}
+for name, (batch, max_len, policy, cores, prompts, news) in \
+        job["cases"].items():
+    fake = [0.0]
+    eng = InferenceEngine(model, params, max_batch=batch, max_len=max_len,
+                          policy=policy, num_host_cores=cores,
+                          clock=lambda: fake[0])
+    reqs = []
+    for p, n in zip(prompts, news):
+        eng.submit(p, n)
+        reqs.append(eng.pending[-1])
+    for _ in range(200):
+        if not eng.pending and not eng.active_mask.any():
+            break
+        eng.step()
+        fake[0] += 0.1
+    out[name] = {"outputs": [r.output for r in reqs],
+                 "report": eng.host_cpu_report()}
+json.dump(out, sys.stdout)
+'''
+
+
+def _cfg(dtype="float32"):
+    return dataclasses.replace(get_smoke_config("llama3-8b"), dtype=dtype)
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    cfg = dataclasses.replace(ref_smoke_config("llama3-8b"),
+                              dtype="float32")
+    return RefModel(cfg), RefModel(cfg).init(jax.random.key(SEED))
+
+
+@pytest.fixture(scope="module")
+def model(ref_params):
+    cfg = _cfg()
+    m = Model(cfg, device="cpu")
+    m.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray,
+                                                        ref_params[1])))
+    return m
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return run_reference(_CHILD, {"seed": SEED, "cases": CASES},
+                         timeout=300)
+
+
+def _serve(model, batch, max_len, policy, cores, prompts, news):
+    fake = [0.0]
+    eng = InferenceEngine(model, max_batch=batch, max_len=max_len,
+                          policy=policy, num_host_cores=cores,
+                          clock=lambda: fake[0])
+    reqs = []
+    for p, n in zip(prompts, news):
+        eng.submit(p, n)
+        reqs.append(eng.pending[-1])
+    for _ in range(200):
+        if not eng.pending and not eng.active_mask.any():
+            break
+        eng.step()
+        fake[0] += 0.1
+    return eng, [r.output for r in reqs]
+
+
+def test_tokens_equal_reference_sequential_decode(model, ref_params):
+    ref_model, params = ref_params
+    vocab = model.cfg.vocab_size
+    _, outputs = _serve(model, *CASES["sequential"])
+    for prompt, got in zip(CASES["sequential"][4], outputs):
+        logits, cache = ref_model.prefill(
+            params, jnp.asarray(prompt, jnp.int32)[None, :], None,
+            max_len=32)
+        want = [int(jnp.argmax(logits[0, -1, :vocab]))]
+        for _ in range(3):
+            logits, cache = ref_model.decode_step(
+                params, cache, jnp.asarray([[want[-1]]], jnp.int32))
+            want.append(int(jnp.argmax(logits[0, 0, :vocab])))
+        assert got == want
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tokens_equal_reference_engine(model, reference, case):
+    _, outputs = _serve(model, *CASES[case])
+    assert outputs == reference[case]["outputs"]
+    assert [len(o) for o in outputs] == CASES[case][5]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_host_cpu_report_equals_reference(model, reference, case):
+    eng, _ = _serve(model, *CASES[case])
+    report = json.loads(json.dumps(eng.host_cpu_report()))
+    assert report == reference[case]["report"]
+
+
+def test_cpu_tensors_launch_no_kernel(model):
+    before = (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches)
+    _serve(model, *CASES["refill"])
+    assert (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches) == before
+
+
+def test_serves_batched_requests():
+    """`tests/test_substrate.py::TestEngine::test_serves_batched_requests`
+    on the port (its own random bfloat16 weights)."""
+    model = Model(get_smoke_config("llama3-8b"), device="cpu", seed=0)
+    fake = [0.0]
+    eng = InferenceEngine(model, max_batch=4, max_len=48,
+                          policy="proposed", num_host_cores=8,
+                          clock=lambda: fake[0])
+    rng = np.random.default_rng(0)
+    for _ in range(6):
+        eng.submit(rng.integers(0, 999, 8).tolist(), 5)
+    for _ in range(100):
+        if not eng.pending and not eng.active_mask.any():
+            break
+        eng.step()
+        fake[0] += 0.1
+    reqs = [x for x in eng.slots if x] + eng.pending
+    assert not reqs  # drained
+    assert eng.host_cpu_report()["assigns"] >= 6 * 3
+
+
+def test_sampling_is_reproducible_per_seed(model):
+    def run(seed):
+        eng = InferenceEngine(model, max_batch=2, max_len=24, greedy=False,
+                              sample_seed=seed, clock=lambda: 0.0)
+        reqs = []
+        for p in ([1, 2, 3, 4], [5, 6, 7]):
+            eng.submit(p, 6)
+            reqs.append(eng.pending[-1])
+        eng.run_until_drained()
+        return [r.output for r in reqs]
+
+    first = run(7)
+    assert run(7) == first
+    assert all(0 <= t < model.cfg.vocab_size for o in first for t in o)
+
+
+def test_out_of_slice_raises(model):
+    eng = InferenceEngine(model, max_batch=1, max_len=16)
+    with pytest.raises(NotImplementedError, match="A5"):
+        eng.prometheus_text()
+    with pytest.raises(NotImplementedError, match="A5"):
+        InferenceEngine(model, telemetry=object())
+
+
+def test_serve_cli_on_cpu(capsys):
+    serve.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
+                "--requests", "3", "--new-tokens", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("served 3 requests / 9 tokens")
+    assert lines[1].startswith("host CPU [proposed]: cores_active=")
+    assert "cpu_tasks=" in lines[1]
+
+
+def test_cache_dtype_and_device(model):
+    eng = InferenceEngine(model, max_batch=3, max_len=20)
+    assert eng.cache["k"].shape == (2, 3, 20, 2, 32)
+    assert eng.cache["k"].dtype == torch.float32
+    assert eng.cache["pos"].dtype == torch.int32
+    assert eng.tokens.device == model.device
