@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes, on one GPU.
 
-    python3 benchmarks_torch/profile_serve.py
+    python3 benchmarks_torch/profile_serve.py [--arch mamba2-2.7b]
 
-Builds the serving cell of `chip_smoke.py` (its `SERVE` settings:
-Llama-3-8B at full width, bfloat16, random weights from seed 0, 4 batch
-slots, a 1,536-position cache, policy "proposed" on 16 host cores) and
-profiles two windows under `torch.profiler`, each after an untimed
-warm-up of the same work:
+Builds a serving cell of `chip_smoke.py` (its `SERVE` settings: the model
+of `--arch` at full width, Llama-3-8B by default, bfloat16, random
+weights from seed 0, 4 batch slots, a 1,536-position cache, policy
+"proposed" on 16 host cores) and profiles two windows under
+`torch.profiler`, each after an untimed warm-up of the same work:
 
 - decode: `ITERATIONS` engine steps with all 4 slots busy (prompts of
   `PROMPT` tokens), no admission in the window;
@@ -15,12 +15,14 @@ warm-up of the same work:
 
 For each it prints the wall time, the summed device time of its kernels,
 the device's idle share (1 - device time / wall), the kernel launches,
-and the kernels that take the most device time. Where the profiler
-records no device time it prints "not measured" for the device numbers.
-Needs CUDA; exits 1 without it.
+the share of the device time in each of the port's own kernels, and the
+kernels that take the most device time. Where the profiler records no
+device time it prints "not measured" for the device numbers. Needs CUDA;
+exits 1 without it.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -31,6 +33,8 @@ ITERATIONS = 16     # decode steps in the profiled window
 PROMPT = 512        # prompt tokens of each of the 4 decoding requests
 PREFILL = 1024      # prompt tokens of the profiled prefill
 TOP = 10            # kernels listed by device time
+# the port's hand-written kernels, by the name of their __global__
+OWN = ("flash_attention_kernel", "decode_attention", "ssd_scan_kernel")
 
 
 def report(prof, wall: float, label: str, per: int, unit: str) -> None:
@@ -53,13 +57,25 @@ def report(prof, wall: float, label: str, per: int, unit: str) -> None:
         return
     print(f"[{label}] device time {device_us / 1e3:.2f} ms; idle share "
           f"{1.0 - device_us / 1e6 / wall:.4f}")
+    for name in OWN:
+        own = [e for e in kernels if name in e.key]
+        if own:
+            us = sum(getattr(e, key) for e in own)
+            count = sum(e.count for e in own)
+            print(f"[{label}] {name}: {us / 1e3:.3f} ms, "
+                  f"{100 * us / device_us:.1f}% of the device time, "
+                  f"{count} launches ({us / count:.1f} us each)")
     for e in sorted(kernels, key=lambda e: -getattr(e, key))[:TOP]:
         us = getattr(e, key)
         print(f"  {us / 1e3:9.3f} ms {100 * us / device_us:5.1f}% "
               f"{e.count:6d}x  {e.key[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="the model to serve (default: chip_smoke's SERVE)")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -73,6 +89,7 @@ def main() -> int:
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.decode_attention.ops import KERNEL as DECODE
     from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
+    from repro_torch.kernels.ssd_scan.ops import KERNEL as SSD
     from repro_torch.models import Model
     from repro_torch.serving.engine import InferenceEngine
 
@@ -80,8 +97,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    build_all((FLASH, DECODE))
-    cfg = get_config(SERVE["arch"])
+    build_all((FLASH, DECODE, SSD))
+    cfg = get_config(args.arch or SERVE["arch"])
+    print(f"model: {cfg.name}")
     model = Model(cfg, device="cuda", seed=SERVE["seed"])
     rng = np.random.default_rng(SERVE["seed"])
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

@@ -25,6 +25,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    them one PyTorch call that computes the same function
    (`scaled_dot_product_attention`, `library_ms`), timed the same way
    and used nowhere in the port.
+2c. The SSD scan kernel against its plain versions: on the shapes of
+   the reference's `TestSSDScanKernel` (float32 and bfloat16) against
+   the sequential recurrence `ssd_scan_ref`, and on the shapes Mamba2-2.7B
+   gives it in phase 5 against the model's chunked scan `ssd_chunked`,
+   the final state included; timed as in phase 2, with `ssd_chunked` as
+   `plain_ms` (no single PyTorch call computes the scan: `library_ms`
+   is null) and the recurrence, a Python loop of L steps, timed eagerly
+   at the reference's shapes only.
 3. The fleet engine end to end on CUDA through `run_experiment`: the
    headline row of `benchmarks/bench_sim.py` `fleet_scale`, 200 machines
    x 40 cores x 1 h of conversation-poisson at 545.455 rps, with the
@@ -43,6 +51,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    must stay within the noise floor of bfloat16 rounding at this depth,
    measured in the same run, and in float32 (the same architecture at
    full width) within 1e-3 of the plain path (`F32_RTOL`, `F32_ATOL`).
+5. Mamba2-2.7B at full width (64 layers, bfloat16, random weights from
+   seed 0) served the same way, with the same traffic: every prefill's
+   SSD scan goes through the ssd_scan kernel (64 launches per request;
+   the decode step has no kernel), and the same two holds of the kernel
+   path against the plain path (`ssd_chunked`) follow.
+
+Each serving phase sets every kernel's launch count to 0 just before it
+and reads them all just after: a kernel of the path must have run
+exactly as often as the path calls it, and no other kernel at all.
 
 The last two lines are one JSON object per kernel and the device line.
 Without CUDA, or without `src/repro_torch` beside this file, it prints
@@ -103,16 +120,40 @@ DECODE_CASES = ([(b, h, hkv, s, d, 0, dt)
 DECODE_MAIN = (4, 32, 8, 1536, 128, 0, "bfloat16")
 
 
+# (b, l, h, p, n, chunk, dtype): the reference's TestSSDScanKernel shapes
+# in float32 and bfloat16, and Mamba2-2.7B's prefill (one request of L
+# tokens: 80 heads, P 64, N 128, bfloat16) at L = 1,024 and at 891, the
+# longest prompt of phase 5 and no multiple of the kernel's tile
+SSD_CASES = ([(b, l, h, p, n, chunk, dt)
+              for dt in ("float32", "bfloat16")
+              for b, l, h, p, n, chunk in ((1, 128, 2, 64, 128, 128),
+                                           (2, 256, 4, 64, 64, 128),
+                                           (1, 200, 2, 32, 64, 128),
+                                           (2, 512, 1, 64, 128, 256))]
+             + [(1, l, 80, 64, 128, 256, "bfloat16") for l in (1024, 891)])
+SSD_MAIN = (1, 1024, 80, 64, 128, 256, "bfloat16")
+SSD_TILE = 64               # steps per chunk tile of the kernel
+# the final state, as tests/test_models.py::TestSSD holds h
+STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def ssd_tol(dtype: str) -> dict:
+    """`tests/test_kernels.py::TestSSDScanKernel`'s tolerance for y."""
+    return dict(rtol=4e-2, atol=2e-1) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=5e-4)
+
+
 def attention_tol(dtype: str) -> dict:
     """`tests/test_kernels.py::tol` of the reference."""
     return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" \
         else dict(rtol=2e-5, atol=2e-5)
 
 
-# phase 4: the serving cell
+# phases 4 and 5: the serving cells, one traffic for both models
 SERVE = dict(arch="llama3-8b", seed=0, max_batch=4, max_len=1536,
              policy="proposed", host_cores=16, requests=8,
              prompt_lens=(128, 1024), new_tokens=32)
+SERVE_MAMBA = dict(SERVE, arch="mamba2-2.7b")
 # Phase 4 holds the kernel path against the plain path (the kernels'
 # plain versions, `use_kernel=False`) on the engine's tokens, two ways:
 # - float32, the same architecture at full width (weights from seed 1) on
@@ -385,6 +426,94 @@ def phase_attention_kernels(torch, np):
     return rows
 
 
+def _ssd_inputs(torch, np, case):
+    """x, dt, a_log, b, c of one ssd_scan case on the card, drawn as the
+    reference's test draws them (dt = softplus(normal), a_log = 0.5
+    normal)."""
+    b, l, h, p, n, _, dtype = case
+    rng = np.random.default_rng(l)
+    x, bb, cc = (torch.tensor(rng.standard_normal(shape),
+                              dtype=torch.float32,
+                              device="cuda").to(getattr(torch, dtype))
+                 for shape in ((b, l, h, p), (b, l, n), (b, l, n)))
+    dt = torch.nn.functional.softplus(torch.tensor(
+        rng.standard_normal((b, l, h)), dtype=torch.float32, device="cuda"))
+    a_log = torch.tensor(rng.standard_normal(h) * 0.5, dtype=torch.float32,
+                         device="cuda")
+    return x, dt, a_log, bb, cc
+
+
+def _ssd_work(case):
+    """(bytes, operations) of one ssd_scan call: x read and y written, dt,
+    a_log, b and c read and the float32 final state written, each once;
+    the chunked algebra at the kernel's tile Q over the L steps, with
+    C B^T formed once for all heads: 2 L (Q N + H (Q P + 2 P N))."""
+    b, l, h, p, n, _, dtype = case
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * l * h * p * size + b * l * h * 4 + h * 4
+              + 2 * b * l * n * size + b * h * p * n * 4)
+    q = SSD_TILE
+    return nbytes, 2 * b * l * (q * n + h * (q * p + 2 * p * n))
+
+
+def phase_ssd_kernel(torch, np):
+    """ssd_scan (kernel) vs its plain versions on the card. Returns the
+    kernels line row of the main-path shape."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.mamba2 import ssd_chunked
+    main_row = None
+    for case in SSD_CASES:
+        b, l, h, p, n, chunk, dtype = case
+        args = _ssd_inputs(torch, np, case)
+        serve = h == SSD_MAIN[2]
+
+        def kernel():
+            return ssd(*args, chunk=chunk, return_state=True)
+
+        def chunked():
+            return ssd_chunked(*args, chunk=chunk)
+
+        def sequential():
+            return ssd_scan_ref(*args, return_state=True)
+        y, state = kernel()
+        y_ref, state_ref = chunked() if serve else sequential()
+        torch.cuda.synchronize()
+        err = float((y.float() - y_ref.float()).abs().max())
+        state_err = float((state - state_ref).abs().max())
+        ok = (bool(torch.allclose(y.float(), y_ref.float(), **ssd_tol(dtype)))
+              and bool(torch.allclose(state, state_ref, **STATE_TOL))
+              and bool(torch.isfinite(y).all()))
+        against = "ssd_chunked" if serve else "ssd_scan_ref"
+        if not ok:
+            raise AssertionError(f"ssd_scan disagrees with {against} at "
+                                 f"{case}: max_abs_err {err:.3e}, state "
+                                 f"{state_err:.3e}")
+        nbytes, ops = _ssd_work(case)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / _peak(dtype) * 1e3
+        row = {"ms": graph_ms(kernel), "plain_ms": graph_ms(chunked),
+               "wrapper_ms": eager_ms(kernel),
+               "plain_eager_ms": eager_ms(chunked), "library_ms": None,
+               "max_abs_err": err, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        seq = "" if serve else (
+            f", the recurrence eagerly "
+            f"{eager_ms(sequential, calls=2, trials=3) * 1e3:.1f} us")
+        log(f"[ssd_scan] b={b} l={l} h={h} p={p} n={n} chunk={chunk} "
+            f"{dtype}: vs {against} max_abs_err {err:.3e} "
+            f"({ssd_tol(dtype)}), state {state_err:.3e} ({STATE_TOL}) ok; "
+            f"per call on the device (CUDA graph) kernel "
+            f"{row['ms'] * 1e3:.3f} us, ssd_chunked "
+            f"{row['plain_ms'] * 1e3:.3f} us; eager wrapper "
+            f"{row['wrapper_ms'] * 1e3:.2f} us, ssd_chunked "
+            f"{row['plain_eager_ms'] * 1e3:.2f} us{seq}; bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+        if case == SSD_MAIN:
+            main_row = row
+    return main_row
+
+
 def phase_fleet(torch, kernels):
     """`kernels`: the `CudaKernel` of every kernel the fleet path runs."""
     from repro_torch.sim import ExperimentConfig, run_experiment
@@ -455,40 +584,44 @@ def phase_fleet(torch, kernels):
     return launches
 
 
-def phase_serve(torch, np, kernels):
-    """Llama-3-8B served on the card through the port's engine; then the
-    kernel path held against the plain path. `kernels`: the `CudaKernel`
-    of both attention kernels, flash first."""
+def phase_serve(torch, np, serve, kernels, expected):
+    """One serving cell (`SERVE` or `SERVE_MAMBA`) on the card through the
+    port's engine; then the kernel path held against the plain path.
+    `kernels`: the `CudaKernel` of every kernel of the port; `expected(cfg,
+    decode_iterations)`: the launches of each of them that the path must
+    make. Returns those launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving.engine import InferenceEngine
 
-    flash, dec = kernels
-    cfg = get_config(SERVE["arch"])
+    cfg = get_config(serve["arch"])
+    tag = f"[serve {cfg.name}]"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Model(cfg, device="cuda", seed=SERVE["seed"])
+    model = Model(cfg, device="cuda", seed=serve["seed"])
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+    shape = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads" if cfg.num_heads
+             else f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+                  f"P {cfg.ssm_head_dim}, state N {cfg.ssm_state}")
+    log(f"{tag} {cfg.num_layers} layers, d_model {cfg.d_model}, {shape}, "
         f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}: "
         f"{n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB) "
         f"initialised on the card in {time.perf_counter() - t0:.2f} s")
 
     def engine():
         return InferenceEngine(
-            model, max_batch=SERVE["max_batch"], max_len=SERVE["max_len"],
-            policy=SERVE["policy"], num_host_cores=SERVE["host_cores"])
+            model, max_batch=serve["max_batch"], max_len=serve["max_len"],
+            policy=serve["policy"], num_host_cores=serve["host_cores"])
 
     warm = engine()                    # cuBLAS handles, allocator pools
-    warm.submit(list(range(SERVE["prompt_lens"][0])), max_new_tokens=2)
+    warm.submit(list(range(serve["prompt_lens"][0])), max_new_tokens=2)
     warm.run_until_drained()
     del warm
 
-    rng = np.random.default_rng(SERVE["seed"])
-    lo, hi = SERVE["prompt_lens"]
-    lens = rng.integers(lo, hi + 1, SERVE["requests"])
+    rng = np.random.default_rng(serve["seed"])
+    lo, hi = serve["prompt_lens"]
+    lens = rng.integers(lo, hi + 1, serve["requests"])
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     eng = engine()
     prefill_s, decode_iters = [0.0], [0]
@@ -507,23 +640,23 @@ def phase_serve(torch, np, kernels):
         return real_decode(*args)
 
     eng._prefill_fn, eng._decode_fn = timed_prefill, counted_decode
-    flash.launches = dec.launches = 0
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     reqs = []
     for prompt in prompts:
-        eng.submit(prompt, max_new_tokens=SERVE["new_tokens"])
+        eng.submit(prompt, max_new_tokens=serve["new_tokens"])
         reqs.append(eng.pending[-1])
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash.launches,
-                "decode_attention": dec.launches}
+    launches = {k.name: k.launches for k in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    new = SERVE["requests"] * SERVE["new_tokens"]
-    decode_tokens = new - SERVE["requests"]   # the first comes of prefill
+    new = serve["requests"] * serve["new_tokens"]
+    decode_tokens = new - serve["requests"]   # the first comes of prefill
     decode_s = wall - prefill_s[0]
-    log(f"[serve] {SERVE['requests']} requests, prompts "
-        f"{sorted(int(n) for n in lens)} tokens, {SERVE['new_tokens']} new "
+    log(f"{tag} {serve['requests']} requests, prompts "
+        f"{sorted(int(n) for n in lens)} tokens, {serve['new_tokens']} new "
         f"each: wall {wall:.3f} s ({new / wall:.1f} tok/s); prefill "
         f"{prefill_s[0]:.3f} s for {int(lens.sum())} prompt tokens "
         f"({lens.sum() / prefill_s[0]:.1f} tok/s); decode {decode_s:.3f} s, "
@@ -531,29 +664,28 @@ def phase_serve(torch, np, kernels):
         f"({decode_tokens / decode_s:.1f} tok/s, "
         f"{decode_s / decode_iters[0] * 1e3:.2f} ms per iteration)")
     rep = eng.host_cpu_report()
-    log(f"[serve] host CPU [{rep['policy']}]: cores_active="
-        f"{rep['active_cores']}/{SERVE['host_cores']} cv={rep['cv']:.4f} "
+    log(f"{tag} host CPU [{rep['policy']}]: cores_active="
+        f"{rep['active_cores']}/{serve['host_cores']} cv={rep['cv']:.4f} "
         f"mean_freq_degradation={rep['mean_degradation']:.5f} "
         f"cpu_tasks={rep['assigns']}")
-    log(f"[serve] launches {launches} (expected flash "
-        f"{cfg.num_layers} x {SERVE['requests']} requests, decode "
-        f"{cfg.num_layers} x {decode_iters[0]} iterations); peak device "
-        f"memory {peak_gb:.2f} GB")
-    if launches["flash_attention"] != cfg.num_layers * SERVE["requests"] \
-            or launches["decode_attention"] != \
-            cfg.num_layers * decode_iters[0] or min(launches.values()) == 0:
-        raise AssertionError(f"the serve path did not run through both "
-                             f"kernels as expected: {launches}")
-    if any(len(r.output) != SERVE["new_tokens"] for r in reqs) or any(
+    want = expected(cfg, decode_iters[0])
+    log(f"{tag} launches {launches} (expected {want}); peak device memory "
+        f"{peak_gb:.2f} GB")
+    if launches != want:
+        raise AssertionError(f"the serve path did not run through its "
+                             f"kernels as expected: {launches} != {want}")
+    if any(len(r.output) != serve["new_tokens"] for r in reqs) or any(
             not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise AssertionError("a request did not get its tokens")
 
     tokens = [req.output for req in reqs]
-    del eng, reqs
-    _hold_bf16(torch, model, prompts, tokens)
+    # the hooks' closures hold the engine: freed here, not by a later
+    # garbage collection, so that the next cell finds the card empty
+    del eng, reqs, real_prefill, real_decode
+    _hold_bf16(torch, model, prompts, tokens, tag)
     del model
     torch.cuda.empty_cache()
-    _hold_f32(torch, cfg, prompts, tokens)
+    _hold_f32(torch, cfg, prompts, tokens, tag)
     return launches
 
 
@@ -581,7 +713,7 @@ def _rel_l2(a, b):
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).amax().item()
 
 
-def _hold_bf16(torch, model, prompts, tokens):
+def _hold_bf16(torch, model, prompts, tokens, tag):
     """bfloat16: kernel path vs plain path, against the noise floor."""
     t0 = time.perf_counter()
     kernel_d, noise_d, max_err, flips, steps = 0.0, 0.0, 0.0, 0, 0
@@ -607,7 +739,7 @@ def _hold_bf16(torch, model, prompts, tokens):
             noise_d = max(noise_d, _rel_l2(noisy, p))
     finally:
         model.embed.data = table
-    log(f"[serve] bfloat16, kernel vs plain path on the engine's tokens: "
+    log(f"{tag} bfloat16, kernel vs plain path on the engine's tokens: "
         f"{steps} steps, max |logit diff| {max_err:.4f}, max relative L2 "
         f"{kernel_d:.4e}; noise floor (plain path, embeddings perturbed by "
         f"{NOISE_REL:.3g} relative) {noise_d:.4e}; plain greedy tokens that "
@@ -618,7 +750,7 @@ def _hold_bf16(torch, model, prompts, tokens):
                              f"{kernel_d:.4e} > {noise_d:.4e}")
 
 
-def _hold_f32(torch, cfg, prompts, tokens):
+def _hold_f32(torch, cfg, prompts, tokens, tag):
     """float32 at full width: kernel path vs plain path, tight."""
     import dataclasses
 
@@ -635,7 +767,7 @@ def _hold_f32(torch, cfg, prompts, tokens):
         worst = max(worst, float((diff - F32_ATOL - F32_RTOL * p.abs())
                                  .max()))
         steps += len(toks)
-    log(f"[serve] float32 at full width, kernel vs plain path: {steps} "
+    log(f"{tag} float32 at full width, kernel vs plain path: {steps} "
         f"steps of {F32_REQUESTS} requests, max |logit diff| {max_err:.3e} "
         f"(bound {F32_ATOL} + {F32_RTOL} |plain|, worst margin "
         f"{worst:.3e}) ({time.perf_counter() - t0:.1f} s)")
@@ -660,12 +792,29 @@ def main() -> int:
     from repro_torch.kernels.aging_update.ops import KERNEL as AGING
     from repro_torch.kernels.decode_attention.ops import KERNEL as DECODE
     from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
+    from repro_torch.kernels.ssd_scan.ops import KERNEL as SSD
 
-    phase_environment(torch, (AGING, FLASH, DECODE))
+    every = (AGING, FLASH, DECODE, SSD)
+    phase_environment(torch, every)
     aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS)
     attention_rows = phase_attention_kernels(torch, np)
+    ssd_row = phase_ssd_kernel(torch, np)
     launches = phase_fleet(torch, (AGING,))
-    launches.update(phase_serve(torch, np, (FLASH, DECODE)))
+
+    def dense(cfg, iterations):
+        return {"aging_update": 0, "ssd_scan": 0,
+                "flash_attention": cfg.num_layers * SERVE["requests"],
+                "decode_attention": cfg.num_layers * iterations}
+
+    def ssm(cfg, iterations):
+        return {"aging_update": 0, "flash_attention": 0,
+                "decode_attention": 0,
+                "ssd_scan": cfg.num_layers * SERVE_MAMBA["requests"]}
+    served = phase_serve(torch, np, SERVE, every, dense)
+    launches.update(flash_attention=served["flash_attention"],
+                    decode_attention=served["decode_attention"])
+    served = phase_serve(torch, np, SERVE_MAMBA, every, ssm)
+    launches["ssd_scan"] = served["ssd_scan"]
     src_dir = "src/repro_torch/kernels"
     kernels = [
         dict({"name": "aging_update", "route": "cuda",
@@ -685,6 +834,10 @@ def main() -> int:
                   "src/repro/kernels/decode_attention/decode_attention.py:71",
               "launches": launches["decode_attention"]},
              **attention_rows["decode_attention"]),
+        dict({"name": "ssd_scan", "route": "cuda",
+              "source": f"{src_dir}/ssd_scan/ssd_scan.cu",
+              "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:64",
+              "launches": launches["ssd_scan"]}, **ssd_row),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """Serving entry point of the port: continuous-batching engine + aging-aware
-core manager, on the card unless `--device cpu`.
+core manager, on the card unless `--device cpu`. `--arch` takes a dense
+GQA model (llama3-8b, granite-3-8b, phi3-medium-14b) or Mamba2
+(mamba2-2.7b).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --smoke --device cpu --requests 4 --new-tokens 4
 """
 from __future__ import annotations
@@ -21,7 +24,8 @@ from repro_torch.serving.engine import InferenceEngine
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="a dense GQA model or mamba2-2.7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)

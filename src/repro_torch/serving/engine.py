@@ -12,8 +12,11 @@ Core Idling runs on a wall-clock period, so an idle engine deep-idles its
 host cores (age-halting) and a bursty one wakes them.
 
 Differences from the reference: the model (`repro_torch.models.Model`)
-carries its own weights, so the engine takes no `params`; the KV cache
-is updated in place; there is no telemetry hub yet (ROADMAP A5).
+carries its own weights, so the engine takes no `params`; the cache is
+updated in place; there is no telemetry hub yet (ROADMAP A5). For the
+ssm family the cache holds W-1 rows of conv history per slot, where the
+reference's engine sizes it from a one-token prefill and holds one
+(ROADMAP R6).
 """
 from __future__ import annotations
 
@@ -88,16 +91,23 @@ class InferenceEngine:
     # ------------------------- device functions ------------------------ #
     def _empty_cache(self):
         cfg = self.model.cfg
-        ring = cfg.swa_ring and cfg.sliding_window
-        shape = (cfg.num_layers, self.max_batch,
-                 cfg.sliding_window if ring else self.max_len,
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=self.model.dtype,
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=self.model.dtype,
-                                 device=self.device),
-                "pos": torch.zeros(self.max_batch, dtype=torch.int32,
-                                   device=self.device)}
+        b, dev, dtype = self.max_batch, self.device, self.model.dtype
+        if cfg.family == "ssm":
+            shapes = {"conv": ((cfg.num_layers, b, cfg.ssm_conv_width - 1,
+                                cfg.d_inner + 2 * cfg.ssm_state), dtype),
+                      "state": ((cfg.num_layers, b, cfg.ssm_heads,
+                                 cfg.ssm_head_dim, cfg.ssm_state),
+                                torch.float32)}
+        else:
+            ring = cfg.swa_ring and cfg.sliding_window
+            kv = (cfg.num_layers, b,
+                  cfg.sliding_window if ring else self.max_len,
+                  cfg.num_kv_heads, cfg.resolved_head_dim)
+            shapes = {"k": (kv, dtype), "v": (kv, dtype)}
+        cache = {key: torch.zeros(shape, dtype=dt, device=dev)
+                 for key, (shape, dt) in shapes.items()}
+        cache["pos"] = torch.zeros(b, dtype=torch.int32, device=dev)
+        return cache
 
     def _prefill_fn(self, tokens):
         return self.model.prefill(tokens, max_len=self.max_len)
@@ -144,8 +154,9 @@ class InferenceEngine:
             logits, pcache = self._prefill_fn(toks)
             # splice the single-row prefill cache into slot i; this also
             # overwrites what the slot wrote while it was inactive
-            self.cache["k"][:, i] = pcache["k"][:, 0]
-            self.cache["v"][:, i] = pcache["v"][:, 0]
+            for key, big in self.cache.items():
+                if key != "pos":
+                    big[:, i] = pcache[key][:, 0]
             self.cache["pos"][i] = len(req.prompt)
             first = self._select_token(logits[:, -1])
             req.output.append(int(first[0]))

@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the fleet engine on CUDA against the same engine on the CPU,
-and the dense model and serving engine through the attention kernels. Every test here needs an NVIDIA GPU and skips without one; this
+the dense model and serving engine through the attention kernels, and
+the Mamba2 model and engine through the SSD scan kernel. Every test here
+needs an NVIDIA GPU and skips without one; this
 file imports neither jax nor the reference, so it runs on a machine
 that has only the port's dependencies:
 
@@ -20,7 +22,9 @@ from repro_torch.kernels.aging_update import ops
 from repro_torch.kernels.aging_update.ref import aging_update_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models import Model
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models import Model, mamba2
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.sim import ExperimentConfig, run_experiment
 
@@ -171,4 +175,108 @@ def test_engine_on_cuda_matches_cpu(cuda_device):
             reqs.append(eng.pending[-1])
         eng.run_until_drained()
         outputs.append([r.output for r in reqs])
+    assert outputs[0] == outputs[1]
+
+
+def _ssd_inputs(device, dtype, seed, b, l, h, p, n):
+    rng = np.random.default_rng(seed)
+    x, bb, cc = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                              device=device).to(dtype)
+                 for s in ((b, l, h, p), (b, l, n), (b, l, n)))
+    dt = torch.nn.functional.softplus(torch.tensor(
+        rng.standard_normal((b, l, h)), dtype=torch.float32, device=device))
+    a_log = torch.tensor(rng.standard_normal(h) * 0.5, dtype=torch.float32,
+                         device=device)
+    return x, dt, a_log, bb, cc
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [
+    (1, 128, 2, 64, 128, 128), (2, 256, 4, 64, 64, 128),
+    (1, 200, 2, 32, 64, 128), (2, 512, 1, 64, 128, 256),
+    (1, 5, 3, 32, 32, 5)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_matches_plain_version(cuda_device, b, l, h, p, n, chunk,
+                                          dtype):
+    """tests/test_kernels.py::TestSSDScanKernel's shapes and tolerances
+    (and a prompt shorter than one tile); the final state at 1e-3."""
+    args = _ssd_inputs(cuda_device, dtype, l, b, l, h, p, n)
+    before = ssd_ops.KERNEL.launches
+    y, state = ssd_ops.ssd(*args, chunk=chunk, return_state=True)
+    assert ssd_ops.KERNEL.launches == before + 1
+    y_ref, state_ref = ssd_scan_ref(*args, return_state=True)
+    rt = 4e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rt,
+                               atol=rt * 5)
+    torch.testing.assert_close(state, state_ref, rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
+    args = _ssd_inputs(cuda_device, torch.float32, 0, 1, 8, 2, 16, 32)
+    with pytest.raises(ValueError, match="P in"):
+        ssd_ops.ssd(*args)
+    x, dt, a_log, bb, cc = _ssd_inputs(cuda_device, torch.float32, 0, 1, 8,
+                                       2, 32, 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_ops.ssd(x, dt, a_log, bb.bfloat16(), cc)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssd_ops.ssd(x, dt.cpu(), a_log, bb, cc)
+
+
+def test_mamba2_model_goes_through_ssd_kernel(cuda_device):
+    """One ssd_scan launch per layer of each prefill; the kernel path's
+    logits agree with the plain path (`ssd_chunked`) at float32."""
+    cfg = dataclasses.replace(get_smoke_config("mamba2-2.7b"),
+                              dtype="float32")
+    model = Model(cfg, device=cuda_device, seed=0)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, 1000, (2, 40)),
+                        device=cuda_device)
+    ssd_ops.KERNEL.launches = 0
+    logits, cache = model.prefill(toks)
+    plain, plain_cache = model.prefill(toks, use_kernel=False)
+    assert ssd_ops.KERNEL.launches == cfg.num_layers
+    torch.testing.assert_close(logits, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["state"], plain_cache["state"],
+                               rtol=1e-3, atol=1e-3)
+    tok = toks[:, -1:]
+    for _ in range(3):
+        logits, cache = model.decode_step(cache, tok)
+        plain, plain_cache = model.decode_step(plain_cache, tok)
+        torch.testing.assert_close(logits, plain, rtol=1e-4, atol=1e-4)
+    assert ssd_ops.KERNEL.launches == cfg.num_layers
+
+
+def test_ssd_kernel_matches_chunked_at_serve_width(cuda_device):
+    """Mamba2-2.7B's shape (80 heads, P 64, N 128) at a length that is no
+    multiple of a tile, in bfloat16, against the model's plain scan."""
+    args = _ssd_inputs(cuda_device, torch.bfloat16, 3, 1, 891, 80, 64, 128)
+    y, state = ssd_ops.ssd(*args, chunk=256, return_state=True)
+    y_chk, h_chk = mamba2.ssd_chunked(*args, chunk=256)
+    torch.testing.assert_close(y.float(), y_chk.float(), rtol=4e-2,
+                               atol=2e-1)
+    torch.testing.assert_close(state, h_chk, rtol=1e-3, atol=1e-3)
+
+
+def test_mamba2_engine_on_cuda_matches_cpu(cuda_device):
+    """Same weights, same prompts: the engine on the card (through the SSD
+    kernel: layers x prompts launches) gives the CPU engine's greedy
+    tokens at float32."""
+    cfg = dataclasses.replace(get_smoke_config("mamba2-2.7b"),
+                              dtype="float32")
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    on_gpu = Model(cfg, device=cuda_device, seed=0)
+    on_gpu.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 999, n).tolist() for n in (5, 12, 2, 9)]
+    outputs = []
+    for model in (on_cpu, on_gpu):
+        ssd_ops.KERNEL.launches = 0
+        eng = InferenceEngine(model, max_batch=2, max_len=32,
+                              clock=lambda: 0.0)
+        reqs = []
+        for p in prompts:
+            eng.submit(p, 5)
+            reqs.append(eng.pending[-1])
+        eng.run_until_drained()
+        outputs.append([r.output for r in reqs])
+    assert ssd_ops.KERNEL.launches == cfg.num_layers * len(prompts)
     assert outputs[0] == outputs[1]

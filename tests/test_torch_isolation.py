@@ -44,6 +44,7 @@ def test_imports_neither_jax_nor_reference(path):
 def test_import_leaves_reference_unloaded():
     code = ("import sys, repro_torch.sim, repro_torch.kernels;"
             "import repro_torch.kernels.aging_update.ops;"
+            "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.mamba2;"
             "import repro_torch.models, repro_torch.configs, repro_torch.core;"
             "import repro_torch.serving.engine, repro_torch.launch.serve;"
             "print([m for m in sys.modules if m.split('.')[0] in "

@@ -6,7 +6,10 @@ The reference initialises its parameters (`Model.init`) and
 function. Logits are compared at float32 to rtol/atol 1e-4, and at
 bfloat16 to the reference's own `test_decode_matches_prefill` bound
 (rtol 0.08, atol 0.15); the bfloat16 paths round at other places in the
-two frameworks (for one, XLA and PyTorch fuse SiLU differently).
+two frameworks (for one, XLA and PyTorch fuse SiLU differently). On the
+CPU the Mamba2 prefill's scan is `mamba2.ssd_chunked`, what the
+reference's model computes; its CUDA kernel is held on the card
+(`tests/test_torch_cuda.py`).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ BOUNDS = {"float32": dict(rtol=1e-4, atol=1e-4),
 DENSE = ["granite-3-8b", "llama3-8b", "phi3-medium-14b"]
 UNPORTED = {"minicpm3-4b": "MLA", "mixtral-8x22b": "mixture-of-experts",
             "granite-moe-3b-a800m": "mixture-of-experts",
-            "mamba2-2.7b": "ssm family", "zamba2-7b": "hybrid family",
+            "zamba2-7b": "hybrid family",
             "seamless-m4t-large-v2": "encoder-decoder",
             "internvl2-2b": "vision frontend"}
 
@@ -217,7 +220,7 @@ class TestLogitsMatchReference:
             logits, cache = port.decode_step(cache, torch.from_numpy(tok))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b"])
 def test_decode_matches_prefill(arch):
     """`tests/test_models.py::test_decode_matches_prefill` on the port:
     decoding token t with the cache of tokens [0..t) reproduces the
@@ -281,3 +284,92 @@ def test_default_device_without_cuda_raises(monkeypatch):
 def test_training_is_not_ported():
     with pytest.raises(NotImplementedError, match="A13"):
         Model(get_smoke_config("llama3-8b"), device="cpu").loss({})
+
+
+class TestMamba2:
+    """The ssm family: Mamba2's smoke config through both models."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_prefill_and_decode(self, dtype):
+        ref, params, port = _pair("mamba2-2.7b", dtype)
+        vocab = port.cfg.vocab_size
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, vocab, (2, 12))
+        ref_logits, ref_cache = ref.prefill(
+            params, jnp.asarray(toks, jnp.int32), None, max_len=20)
+        logits, cache = port.prefill(torch.from_numpy(toks), max_len=20)
+        cfg = port.cfg
+        assert cache["conv"].shape == (cfg.num_layers, 2,
+                                       cfg.ssm_conv_width - 1,
+                                       cfg.d_inner + 2 * cfg.ssm_state)
+        assert cache["conv"].dtype == port.dtype
+        assert cache["state"].dtype == torch.float32
+        np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                   _np(ref_logits)[..., :vocab],
+                                   **BOUNDS[dtype])
+        for key in ("conv", "state"):
+            np.testing.assert_allclose(_np(cache[key]), _np(ref_cache[key]),
+                                       **BOUNDS[dtype])
+        for _ in range(4):
+            tok = rng.integers(0, vocab, (2, 1))
+            ref_logits, ref_cache = ref.decode_step(
+                params, ref_cache, jnp.asarray(tok, jnp.int32))
+            logits, cache = port.decode_step(cache, torch.from_numpy(tok))
+            np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                       _np(ref_logits)[..., :vocab],
+                                       **BOUNDS[dtype])
+        np.testing.assert_allclose(_np(cache["state"]),
+                                   _np(ref_cache["state"]),
+                                   **BOUNDS[dtype])
+        assert int(cache["pos"]) == int(ref_cache["pos"]) == 16
+
+    @pytest.mark.parametrize("prompt", [1, 2])
+    def test_short_prompt_then_decode(self, prompt):
+        """ROADMAP R6: after a prompt shorter than the conv window (W - 1
+        = 3 tokens), decoding reproduces the port's own full-prefill
+        logits at every next position; the reference raises here. The
+        smoke config is bfloat16: the bound of test_decode_matches_prefill."""
+        cfg = get_smoke_config("mamba2-2.7b")
+        model = Model(cfg, device="cpu", seed=2)
+        tokens = torch.from_numpy(
+            np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 6)))
+        _, cache = model.prefill(tokens[:, :prompt])
+        assert cache["conv"].shape[2] == cfg.ssm_conv_width - 1
+        for i in range(prompt, 6):
+            logits, cache = model.decode_step(cache, tokens[:, i:i + 1])
+            full, _ = model.prefill(tokens[:, :i + 1])
+            np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, 0]),
+                                       rtol=0.08, atol=0.15)
+
+    def test_state_dict_names_match_params_from_jax(self):
+        cfg = dataclasses.replace(get_smoke_config("mamba2-2.7b"),
+                                  dtype="float32")
+        params = RefModel(cfg).init(jax.random.key(0))
+        state = params_from_jax(cfg, jax.tree.map(np.asarray, params))
+        model = Model(cfg, device="cpu")
+        assert state.keys() == model.state_dict().keys()
+        for name, t in model.state_dict().items():
+            assert state[name].shape == t.shape, name
+            assert state[name].dtype == t.dtype, name
+
+    def test_init_constants_and_dtypes(self):
+        """`_init_mamba`: a_log zeros, d_skip ones and dt_bias zeros in
+        float32; conv with std 0.2, the rest in the model's dtype."""
+        cfg = get_smoke_config("mamba2-2.7b")
+        blk = Model(cfg, device="cpu", seed=3).layers[0]
+        for name in ("a_log", "dt_bias", "d_skip"):
+            assert blk[name].dtype == torch.float32
+        assert torch.equal(blk.a_log, torch.zeros(cfg.ssm_heads))
+        assert torch.equal(blk.d_skip, torch.ones(cfg.ssm_heads))
+        assert blk.conv.shape == (cfg.ssm_conv_width,
+                                  cfg.d_inner + 2 * cfg.ssm_state)
+        assert blk.conv.dtype == blk.w_z.dtype == torch.bfloat16
+        assert 0.18 < float(blk.conv.float().std()) < 0.22
+        assert 0.018 < float(blk.w_x.float().std()) < 0.022
+
+    def test_full_size_without_cuda_raises(self, monkeypatch):
+        """The full-width model runs on the card by default and refuses,
+        before allocating anything, when there is none."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Model(get_config("mamba2-2.7b"))

@@ -1,6 +1,7 @@
 """Serving engine of the port (`repro_torch.serving.engine`) against the
-reference, on the CPU, on the float32 smoke config of llama3-8b with the
-reference's parameters (`params_from_jax`) and a fake clock.
+reference, on the CPU, on the float32 smoke configs of llama3-8b and
+mamba2-2.7b with the reference's parameters (`params_from_jax`) and a
+fake clock.
 
 - The port engine's greedy tokens equal the reference model's sequential
   prefill and decode (in this process: `repro.models` imports on Python
@@ -12,6 +13,12 @@ reference's parameters (`params_from_jax`) and a fake clock.
   managers.
 At float32 the two models' logits differ by about 1e-6, so greedy
 tokens agree unless two logits tie that closely.
+
+The reference engine cannot serve Mamba2 as it stands (ROADMAP R6): it
+sizes the conv history of its empty cache from a one-token prefill, so
+splicing a longer prompt's history raises. The child runs it with that
+one line set right (`_SsmEngine`), and the prompts here are longer than
+the conv window, which the reference's model needs.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from repro.models import Model as RefModel
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models import Model, params_from_jax
 from repro_torch.serving.engine import InferenceEngine
@@ -49,61 +57,97 @@ CASES = {
                [3, 6, 4, 5, 3]),
 }
 
+ARCHS = ("llama3-8b", "mamba2-2.7b")
+
 _CHILD = r'''
 import jax
+import jax.numpy as jnp
 from repro.configs import get_smoke_config
 from repro.models import Model
 from repro.serving.engine import InferenceEngine
 
-cfg = dataclasses.replace(get_smoke_config("llama3-8b"), dtype="float32")
-model = Model(cfg)
-params = model.init(jax.random.key(job["seed"]))
+
+class _SsmEngine(InferenceEngine):
+    """R6: W-1 rows of conv history per slot, not the one row of a
+    one-token prefill."""
+
+    def _empty_cache(self):
+        cache = super()._empty_cache()
+        conv = cache["conv"]
+        w = self.model.cfg.ssm_conv_width
+        cache["conv"] = jnp.zeros(conv.shape[:2] + (w - 1,) + conv.shape[3:],
+                                  conv.dtype)
+        return cache
+
+
 out = {}
-for name, (batch, max_len, policy, cores, prompts, news) in \
-        job["cases"].items():
-    fake = [0.0]
-    eng = InferenceEngine(model, params, max_batch=batch, max_len=max_len,
-                          policy=policy, num_host_cores=cores,
-                          clock=lambda: fake[0])
-    reqs = []
-    for p, n in zip(prompts, news):
-        eng.submit(p, n)
-        reqs.append(eng.pending[-1])
-    for _ in range(200):
-        if not eng.pending and not eng.active_mask.any():
-            break
-        eng.step()
-        fake[0] += 0.1
-    out[name] = {"outputs": [r.output for r in reqs],
-                 "report": eng.host_cpu_report()}
+for arch in job["archs"]:
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = Model(cfg)
+    params = model.init(jax.random.key(job["seed"]))
+    engine = _SsmEngine if cfg.family == "ssm" else InferenceEngine
+    out[arch] = {}
+    for name, (batch, max_len, policy, cores, prompts, news) in \
+            job["cases"].items():
+        fake = [0.0]
+        eng = engine(model, params, max_batch=batch, max_len=max_len,
+                     policy=policy, num_host_cores=cores,
+                     clock=lambda: fake[0])
+        reqs = []
+        for p, n in zip(prompts, news):
+            eng.submit(p, n)
+            reqs.append(eng.pending[-1])
+        for _ in range(200):
+            if not eng.pending and not eng.active_mask.any():
+                break
+            eng.step()
+            fake[0] += 0.1
+        out[arch][name] = {"outputs": [r.output for r in reqs],
+                           "report": eng.host_cpu_report()}
 json.dump(out, sys.stdout)
 '''
 
 
-def _cfg(dtype="float32"):
-    return dataclasses.replace(get_smoke_config("llama3-8b"), dtype=dtype)
+def _cfg(dtype="float32", arch="llama3-8b"):
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype)
 
 
-@pytest.fixture(scope="module")
-def ref_params():
-    cfg = dataclasses.replace(ref_smoke_config("llama3-8b"),
-                              dtype="float32")
+def _ref_pair(arch):
+    cfg = dataclasses.replace(ref_smoke_config(arch), dtype="float32")
     return RefModel(cfg), RefModel(cfg).init(jax.random.key(SEED))
 
 
-@pytest.fixture(scope="module")
-def model(ref_params):
-    cfg = _cfg()
+def _port(arch, params):
+    cfg = _cfg(arch=arch)
     m = Model(cfg, device="cpu")
-    m.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray,
-                                                        ref_params[1])))
+    m.load_state_dict(params_from_jax(cfg, jax.tree.map(np.asarray, params)))
     return m
 
 
 @pytest.fixture(scope="module")
+def ref_params():
+    return _ref_pair("llama3-8b")
+
+
+@pytest.fixture(scope="module")
+def model(ref_params):
+    return _port("llama3-8b", ref_params[1])
+
+
+@pytest.fixture(scope="module")
+def ssm_ref_params():
+    return _ref_pair("mamba2-2.7b")
+
+
+@pytest.fixture(scope="module")
+def ssm_model(ssm_ref_params):
+    return _port("mamba2-2.7b", ssm_ref_params[1])
+
+
+@pytest.fixture(scope="module")
 def reference():
-    return run_reference(_CHILD, {"seed": SEED, "cases": CASES},
-                         timeout=300)
+    return run_reference(_CHILD, {"seed": SEED, "cases": CASES,
+                                  "archs": ARCHS}, timeout=300)
 
 
 def _serve(model, batch, max_len, policy, cores, prompts, news):
@@ -123,11 +167,14 @@ def _serve(model, batch, max_len, policy, cores, prompts, news):
     return eng, [r.output for r in reqs]
 
 
-def test_tokens_equal_reference_sequential_decode(model, ref_params):
+def _sequential(model, ref_params):
+    """The port engine's tokens on the "sequential" case, and the
+    reference model's own prefill and greedy decode of each prompt."""
     ref_model, params = ref_params
     vocab = model.cfg.vocab_size
     _, outputs = _serve(model, *CASES["sequential"])
-    for prompt, got in zip(CASES["sequential"][4], outputs):
+    wants = []
+    for prompt in CASES["sequential"][4]:
         logits, cache = ref_model.prefill(
             params, jnp.asarray(prompt, jnp.int32)[None, :], None,
             max_len=32)
@@ -136,13 +183,19 @@ def test_tokens_equal_reference_sequential_decode(model, ref_params):
             logits, cache = ref_model.decode_step(
                 params, cache, jnp.asarray([[want[-1]]], jnp.int32))
             want.append(int(jnp.argmax(logits[0, 0, :vocab])))
-        assert got == want
+        wants.append(want)
+    return outputs, wants
+
+
+def test_tokens_equal_reference_sequential_decode(model, ref_params):
+    outputs, wants = _sequential(model, ref_params)
+    assert outputs == wants
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_tokens_equal_reference_engine(model, reference, case):
     _, outputs = _serve(model, *CASES[case])
-    assert outputs == reference[case]["outputs"]
+    assert outputs == reference["llama3-8b"][case]["outputs"]
     assert [len(o) for o in outputs] == CASES[case][5]
 
 
@@ -150,7 +203,68 @@ def test_tokens_equal_reference_engine(model, reference, case):
 def test_host_cpu_report_equals_reference(model, reference, case):
     eng, _ = _serve(model, *CASES[case])
     report = json.loads(json.dumps(eng.host_cpu_report()))
-    assert report == reference[case]["report"]
+    assert report == reference["llama3-8b"][case]["report"]
+
+
+class TestMamba2:
+    """The same engine serving the float32 Mamba2 smoke model."""
+
+    def test_tokens_equal_reference_sequential_decode(self, ssm_model,
+                                                      ssm_ref_params):
+        outputs, wants = _sequential(ssm_model, ssm_ref_params)
+        assert outputs == wants
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_tokens_equal_reference_engine(self, ssm_model, reference,
+                                           case):
+        _, outputs = _serve(ssm_model, *CASES[case])
+        assert outputs == reference["mamba2-2.7b"][case]["outputs"]
+        assert [len(o) for o in outputs] == CASES[case][5]
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_host_cpu_report_equals_reference(self, ssm_model, reference,
+                                              case):
+        eng, _ = _serve(ssm_model, *CASES[case])
+        report = json.loads(json.dumps(eng.host_cpu_report()))
+        assert report == reference["mamba2-2.7b"][case]["report"]
+
+    def test_cache_shapes_and_no_kernel_on_cpu(self, ssm_model):
+        cfg = ssm_model.cfg
+        eng = InferenceEngine(ssm_model, max_batch=3, max_len=20)
+        assert set(eng.cache) == {"conv", "state", "pos"}
+        assert eng.cache["conv"].shape == (cfg.num_layers, 3,
+                                           cfg.ssm_conv_width - 1,
+                                           cfg.d_inner + 2 * cfg.ssm_state)
+        assert eng.cache["state"].shape == (cfg.num_layers, 3,
+                                            cfg.ssm_heads, cfg.ssm_head_dim,
+                                            cfg.ssm_state)
+        assert eng.cache["state"].dtype == torch.float32
+        before = ssd_ops.KERNEL.launches
+        _serve(ssm_model, *CASES["refill"])
+        assert ssd_ops.KERNEL.launches == before
+
+    def test_short_prompts_are_served(self, ssm_model):
+        """Prompts of 1 and 2 tokens (ROADMAP R6): each slot's tokens
+        equal the model's own prefill and greedy decode of its prompt."""
+        vocab = ssm_model.cfg.vocab_size
+        prompts = [[7], [3, 9], [5, 1, 4, 2]]
+        _, outputs = _serve(ssm_model, 2, 16, "proposed", 4, prompts,
+                            [4, 4, 4])
+        for prompt, got in zip(prompts, outputs):
+            logits, cache = ssm_model.prefill(torch.tensor([prompt]))
+            want = [int(logits[0, -1, :vocab].argmax())]
+            for _ in range(3):
+                logits, cache = ssm_model.decode_step(
+                    cache, torch.tensor([[want[-1]]]))
+                want.append(int(logits[0, 0, :vocab].argmax()))
+            assert got == want
+
+    def test_serve_cli_on_cpu(self, capsys):
+        serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+                    "--requests", "3", "--new-tokens", "3"])
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0].startswith("served 3 requests / 9 tokens")
+        assert lines[1].startswith("host CPU [proposed]: cores_active=")
 
 
 def test_cpu_tensors_launch_no_kernel(model):
