@@ -33,8 +33,10 @@ ITERATIONS = 16     # decode steps in the profiled window
 PROMPT = 512        # prompt tokens of each of the 4 decoding requests
 PREFILL = 1024      # prompt tokens of the profiled prefill
 TOP = 10            # kernels listed by device time
-# the port's hand-written kernels, by the name of their __global__
-OWN = ("flash_attention_kernel", "decode_attention", "ssd_scan_kernel")
+# the port's hand-written kernels, by a part of the name of their
+# __global__ (flash_attention_kernel in float32, flash_attention_tc_kernel
+# in bfloat16)
+OWN = ("flash_attention", "decode_attention", "ssd_scan_kernel")
 
 
 def report(prof, wall: float, label: str, per: int, unit: str) -> None:

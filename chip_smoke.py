@@ -20,11 +20,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    `plain_eager_ms`), which the host's speed sets.
 2b. The two attention kernels against their plain versions, on the
    shapes of the reference's `TestFlashAttentionKernel` and
-   `TestDecodeAttentionKernel` (float32 and bfloat16) and on the shapes
-   Llama-3-8B gives them in phase 4, timed as in phase 2, and beside
-   them one PyTorch call that computes the same function
-   (`scaled_dot_product_attention`, `library_ms`), timed the same way
-   and used nowhere in the port.
+   `TestDecodeAttentionKernel` (float32 and bfloat16, its sliding windows
+   in both) and on the shapes Llama-3-8B gives them in phase 4 (with and
+   without a window), timed as in phase 2, and beside them one PyTorch
+   call that computes the same function (`scaled_dot_product_attention`,
+   `library_ms`), timed the same way and used nowhere in the port; each
+   line gives the kernel's time over SDPA's. flash_attention runs its
+   tensor-core kernel in bfloat16 and its CUDA-core kernel in float32.
 2c. The SSD scan kernel against its plain versions: on the shapes of
    the reference's `TestSSDScanKernel` (float32 and bfloat16) against
    the sequential recurrence `ssd_scan_ref`, and on the shapes Mamba2-2.7B
@@ -95,27 +97,34 @@ BOUNDS = {"completed": 0.01, "mean_latency_s": 0.01,
           "p50_degradation": 0.02, "fleet_yearly_kgco2eq": 0.05}
 
 # (b, h, hkv, s, d, window, dtype): the reference's TestFlashAttentionKernel
-# shapes in float32 and bfloat16, its windows, and Llama-3-8B's prefill
-# (one request of S tokens: 32 heads over 8 KV heads, head_dim 128)
+# shapes in float32 and bfloat16, its windows in both dtypes (bfloat16 runs
+# the tensor-core kernel, float32 the CUDA-core one), a window at the serve
+# shape, and Llama-3-8B's prefill (one request of S tokens: 32 heads over 8
+# KV heads, head_dim 128)
 FLASH_CASES = ([(b, h, hkv, s, d, 0, dt)
                 for dt in ("float32", "bfloat16")
                 for b, h, hkv, s, d in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                                         (1, 4, 1, 128, 128),
                                         (2, 2, 2, 192, 64))]
-               + [(1, 2, 2, 256, 64, w, "float32") for w in (32, 128)]
+               + [(1, 2, 2, 256, 64, w, dt) for dt in ("float32", "bfloat16")
+                  for w in (32, 128)]
+               + [(1, 32, 8, 1000, 128, 256, "bfloat16")]
                + [(1, 32, 8, s, 128, 0, "bfloat16")
                   for s in (128, 1000, 1024)])
 FLASH_MAIN = (1, 32, 8, 1024, 128, 0, "bfloat16")
 # (b, h, hkv, s, d, window, dtype): the reference's
-# TestDecodeAttentionKernel shapes and window, and Llama-3-8B's decode (4
-# slots against the 1,536-position cache, pos drawn in [1, 1536])
+# TestDecodeAttentionKernel shapes and its window in both dtypes, a window
+# at the serve shape, and Llama-3-8B's decode (4 slots against the
+# 1,536-position cache, pos drawn in [1, 1536])
 DECODE_CASES = ([(b, h, hkv, s, d, 0, dt)
                  for dt in ("float32", "bfloat16")
                  for b, h, hkv, s, d in ((1, 4, 4, 512, 64),
                                          (4, 8, 2, 1024, 64),
                                          (2, 8, 1, 512, 128),
                                          (2, 4, 4, 640, 64))]
-                + [(2, 4, 4, 512, 64, 128, "float32"),
+                + [(2, 4, 4, 512, 64, 128, dt)
+                   for dt in ("float32", "bfloat16")]
+                + [(4, 32, 8, 1536, 128, 300, "bfloat16"),
                    (4, 32, 8, 1536, 128, 0, "bfloat16")])
 DECODE_MAIN = (4, 32, 8, 1536, 128, 0, "bfloat16")
 
@@ -417,7 +426,8 @@ def phase_attention_kernels(torch, np):
                 f"({attention_tol(dtype)}) ok; per call on the device "
                 f"(CUDA graph) kernel {row['ms'] * 1e3:.3f} us, plain "
                 f"{row['plain_ms'] * 1e3:.3f} us, SDPA "
-                f"{row['library_ms'] * 1e3:.3f} us (its max_abs_err vs "
+                f"{row['library_ms'] * 1e3:.3f} us (kernel / SDPA "
+                f"{row['ms'] / row['library_ms']:.3f}; SDPA's max_abs_err vs "
                 f"plain {lib_err:.3e}); eager wrapper "
                 f"{row['wrapper_ms'] * 1e3:.2f} us; bound "
                 f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")

@@ -1,5 +1,5 @@
 // Single-token decode attention against a KV cache for Hopper (sm_90a),
-// split-KV (flash-decoding).
+// split-KV (flash-decoding) in one launch.
 //
 // Replaces the Pallas TPU kernel `decode_attention`
 // (src/repro/kernels/decode_attention/decode_attention.py, `_kernel`): one
@@ -13,26 +13,43 @@
 //
 // Bound: bytes. Each visible cache row is read once for K and once for V
 // (2 * Hkv * D elements per position) against 4 * H * D operations per
-// position: a few operations per byte, far below the H100's 295.
+// position: a few operations per byte, far below the H100's 295. At the
+// serving shape (4 sequences, 32 heads over 8, a 1,536-row cache, pos
+// drawn in [1, 1536], bf16) that is 6.8 MB: 2.044 us at 3.35 TB/s. The
+// work per call is tiny, so what the design fights is latency.
 //
 // Design: the Pallas kernel walks the cache of one sequence in one grid
 // row; at batch 4 that would be 4 CTAs on 132 SMs. Here the grid is
 // (n_split, Hkv, B): the visible range [lo, hi) of a sequence is cut into
 // n_split equal slices, computed on the device from pos, so only rows that
 // hold visible positions are read and no CTA waits on a host copy of pos.
-// A CTA of 128 threads holds its group's G query rows in shared memory and
-// walks its slice in tiles of 64 keys: K and V rows are loaded with 16-byte
-// reads and kept as float32 (rows padded by one float against bank
-// conflicts), one thread per (head, key) computes a score, one warp per
-// head updates (m, l), and one thread per (head, column) the accumulator.
-// Each CTA writes its float32 partials (acc, m, l) to a workspace; a second
-// launch merges the n_split partials of every (b, h):
+// A CTA of 4 warps streams its slice in tiles of 32 keys through a ring of
+// 4 stages in shared memory, by 16-byte cp.async copies in the cache's own
+// dtype (rows past the slice are zero-filled), so the copies of the next
+// three tiles run under the current tile's math. Warps take keys (8 of
+// each tile), lanes split D: each lane holds D / 32 elements of q for all
+// G heads of the group in registers, pre-scaled by scale * log2(e). A
+// step scores 32 (key, head) pairs (8 keys at G <= 4, 4 at G <= 8, 2 at
+// G <= 16): each
+// lane forms its partial dot of every pair, and one transposing butterfly
+// (`transpose_sum`, 31 shuffles) leaves the full score of pair `lane` in
+// that lane, which then takes one exp2 for its pair; the probabilities are
+// broadcast back by shuffles for P V, which each warp accumulates with
+// lanes over D, keeping its own (m, l, acc) per head. The 4 warps merge
+// through shared memory once per slice.
 //
-//   M = max m_i,  l = sum l_i e^(m_i - M),  o = sum acc_i e^(m_i - M) / l,
+// The merge of the slices happens in the same launch: each CTA
+// writes its float32 partials (acc, m, l) to a workspace, fences, and takes
+// a ticket from the (b, hk) counter with atomicAdd; the CTA that draws the
+// last ticket merges
 //
-// dividing by max(l, 1e-30) as the Pallas kernel does. A slice with no
-// visible key leaves (m, l, acc) = (-1e30, 0, 0), which the merge weighs
-// by zero. A sequence with no visible key at all (pos = 0) gives 0 here,
+//   M = max m_i,  l = sum l_i 2^(m_i - M),  o = sum acc_i 2^(m_i - M) / l,
+//
+// dividing by max(l, 1e-30) as the Pallas kernel does, and resets the
+// counter to 0, so the counters need zeroing only once, when the wrapper
+// makes them, and a CUDA graph may replay the launch. A slice with no
+// visible key leaves (m, l, acc) = (-1e30, 0, 0), which the merge weighs by
+// zero. A sequence with no visible key at all (pos = 0) gives 0 here,
 // where the Pallas kernel gives the mean of the whole cache; the model
 // never asks for that row (it attends with pos + 1 >= 1).
 #include <cstdint>
@@ -40,19 +57,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "../hopper.cuh"
 #include "../tiles.cuh"
 
 namespace {
 
 using tiles::from_f32;
-using tiles::load_rows;
-using tiles::to_f32;
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 64;        // keys per tile: two per lane of a warp
-constexpr int kMaxGroups = 16;  // query heads per cache head
+constexpr int kBK = 32;            // keys per tile
+constexpr int kWarpKeys = kBK / kWarps;
+constexpr int kStages = 4;         // tiles in the ring
+constexpr int kMaxGroups = 16;     // query heads per cache head
+constexpr int kMaxSplits = 64;     // slices per (sequence, cache head)
 
 // Element strides: q and o (B, H, D) by batch and head; the caches
 // (B, S, Hkv, D) by batch, position and head. The head_dim axis has
@@ -61,35 +80,131 @@ struct Strides {
   int64_t q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;
 };
 
-template <int D>
-constexpr size_t split_smem_bytes(int groups) {
-  return sizeof(float) * (2 * static_cast<size_t>(kBK) * (D + 1) +
-                          static_cast<size_t>(groups) * (D + kBK + 3));
+// Shared memory: the ring of K and V tiles; after the walk, the same bytes
+// hold each warp's (m, l, acc) per head for the merge.
+template <typename T, int D, int kG>
+constexpr size_t smem_bytes() {
+  constexpr size_t ring = sizeof(T) * kStages * 2 * kBK * D;
+  constexpr size_t warps = sizeof(float) * kWarps * kG * (D + 2);
+  constexpr size_t splits = sizeof(float) * 2 * kMaxSplits * kG;
+  constexpr size_t most = ring > warps ? ring : warps;
+  return most > splits ? most : splits;
 }
 
+// E consecutive elements at p (aligned to E elements) as float.
+template <int E>
+__device__ __forceinline__ void load_vec(const float* p, float* out) {
+  if constexpr (E == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = a.z;
+    out[3] = a.w;
+  } else if constexpr (E == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    out[0] = a.x;
+    out[1] = a.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[e] = p[e];
+  }
+}
+template <int E>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
+  if constexpr (E == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(v[0]);
+    const float2 b = __bfloat1622float2(v[1]);
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
+  } else if constexpr (E == 2) {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = a.x;
+    out[1] = a.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) out[e] = __bfloat162float(p[e]);
+  }
+}
+
+// All threads: the cp.async copies of key tile t of the slice [s_lo, s_hi)
+// into its ring stage, rows past s_hi zero-filled.
 template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* ring, const T* kb,
+                                           const T* vb, int64_t k_s,
+                                           int64_t v_s, int t, int s_lo,
+                                           int s_hi) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = D / kVec;  // 16-byte chunks per row
+  const int k0 = s_lo + t * kBK;
+  const int valid = min(kBK, s_hi - k0);
+  T* kd = ring + (t % kStages) * 2 * kBK * D;
+  T* vd = kd + kBK * D;
+  for (int idx = threadIdx.x; idx < 2 * kBK * kChunks; idx += kThreads) {
+    const int is_v = idx / (kBK * kChunks);
+    const int rem = idx % (kBK * kChunks);
+    const int r = rem / kChunks;
+    const int c = (rem % kChunks) * kVec;
+    const T* base = is_v ? vb : kb;
+    const T* src = r < valid ? base + (k0 + r) * (is_v ? v_s : k_s) + c
+                             : base;
+    hopper::cp_async16((is_v ? vd : kd) + r * D + c, src,
+                       r < valid ? 16 : 0);
+  }
+}
+
+// Sums each of the 32 values v[n] of every lane over the 32 lanes of the
+// warp and leaves the sum of v[lane] in lane `lane`: at each of 5 steps a
+// lane keeps half of its values, swaps the other half with the lane that
+// keeps it, and adds, so 31 shuffles do the work of 32 reductions.
+__device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
+#pragma unroll
+  for (int step = 0; step < 5; ++step) {
+    const int bit = 16 >> step;
+    const int half = 16 >> step;  // values left: 2 * half
+    const bool upper = (lane & bit) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float keep = upper ? v[i + half] : v[i];
+      const float send = upper ? v[i] : v[i + half];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+    }
+  }
+  return v[0];
+}
+
+// kG: query heads per cache head that the registers hold (>= H / Hkv).
+template <typename T, int D, int kG>
 __global__ void __launch_bounds__(kThreads)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ pos,
-                        float* __restrict__ part_acc,
-                        float* __restrict__ part_m,
-                        float* __restrict__ part_l, Strides st, int n_heads,
-                        int n_kv_heads, int max_len, int window,
-                        int n_split, float scale) {
-  extern __shared__ float smem[];
-  const int groups = n_heads / n_kv_heads;
-  float* ks = smem;                 // kBK x (D + 1)
-  float* vs = ks + kBK * (D + 1);   // kBK x (D + 1)
-  float* qs = vs + kBK * (D + 1);   // groups x D
-  float* ps = qs + groups * D;      // groups x kBK: scores, then probs
-  float* ms = ps + groups * kBK;    // groups: running max
-  float* ls = ms + groups;          // groups: running sum
-  float* as = ls + groups;          // groups: this tile's rescale
+    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const int* __restrict__ pos,
+                            float* __restrict__ part_acc,
+                            float* __restrict__ part_m,
+                            float* __restrict__ part_l,
+                            int* __restrict__ counters, T* __restrict__ o,
+                            Strides st, int n_heads, int n_kv_heads,
+                            int max_len, int window, int n_split,
+                            float scale_log2) {
+  constexpr int E = D / 32;              // elements of a row per lane
+  // keys scored at once: one (key, head) score per lane
+  constexpr int kSub = 32 / kG;
+  static_assert(kSub * kG == 32 && kWarpKeys % kSub == 0,
+                "a step scores 32 (key, head) pairs");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
 
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int groups = n_heads / n_kv_heads;
 
   // this CTA's slice [s_lo, s_hi) of the visible range [lo, hi)
   const int p = pos[b];
@@ -100,180 +215,251 @@ __global__ void __launch_bounds__(kThreads)
                                          n_split);
   const int s_hi = lo + static_cast<int>(static_cast<int64_t>(len) *
                                          (split + 1) / n_split);
-
-  for (int idx = tid; idx < groups * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
-    qs[idx] = to_f32(q[b * st.q_b + (hk * groups + g) * st.q_h + d]);
-  }
-  for (int g = tid; g < groups; g += kThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.0f;
-  }
-
-  // accumulator elements e = tid + kThreads * i of the (groups, D) block
-  constexpr int kMaxAcc = (kMaxGroups * D + kThreads - 1) / kThreads;
-  const int n_elems = groups * D;
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.0f;
+  const int n_tiles = (s_hi - s_lo + kBK - 1) / kBK;
 
   const T* kb = k + b * st.k_b + hk * st.k_h;
   const T* vb = v + b * st.v_b + hk * st.v_h;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_tile<T, D>(ring, kb, vb, st.k_s, st.v_s, t, s_lo,
+                                      s_hi);
+    hopper::cp_async_commit();
+  }
 
-  for (int k0 = s_lo; k0 < s_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    const int valid = min(kBK, s_hi - k0);
-    load_rows<T, D>(ks, kb + k0 * st.k_s, st.k_s, kBK, valid);
-    load_rows<T, D>(vs, vb + k0 * st.v_s, st.v_s, kBK, valid);
-    __syncthreads();
-
-    for (int idx = tid; idx < groups * kBK; idx += kThreads) {
-      const int g = idx / kBK;
-      const int j = idx % kBK;
-      const float* qrow = qs + g * D;
-      const float* krow = ks + j * (D + 1);
-      float s = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s += qrow[d] * krow[d];
-      ps[idx] = j < valid ? s * scale : kNegInf;
+  float qr[kG][E];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    if (g < groups) {
+      load_vec<E>(q + b * st.q_b + (hk * groups + g) * st.q_h + lane * E,
+                  qr[g]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] *= scale_log2;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] = 0.0f;
     }
-    __syncthreads();
+  }
+  // the running max and sum of head `lane % kG` (the same in every lane of
+  // that head), and the accumulator of every head over this lane's columns
+  float m = kNegInf, l = 0.0f, acc[kG][E];
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.0f;
+  // after transpose_sum this lane holds the score of key lane / kG of the
+  // step, head lane % kG
+  const int lane_key = lane / kG;
 
-    for (int g = warp; g < groups; g += kWarps) {
-      float* prow = ps + g * kBK;
-      const float s0 = prow[lane];
-      const float s1 = prow[lane + 32];
-      float mx = fmaxf(s0, s1);
+  for (int t = 0; t < n_tiles; ++t) {
+    hopper::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t has landed; tile t - 1's readers are done
+    if (t + kStages - 1 < n_tiles)
+      load_tile<T, D>(ring, kb, vb, st.k_s, st.v_s, t + kStages - 1, s_lo,
+                       s_hi);
+    hopper::cp_async_commit();
+
+    const T* kd = ring + (t % kStages) * 2 * kBK * D;
+    const T* vd = kd + kBK * D;
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = ms[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      prow[lane] = p0;
-      prow[lane + 32] = p1;
-      float sum = p0 + p1;
+    for (int j0 = 0; j0 < kWarpKeys; j0 += kSub) {
+      const int r0 = warp * kWarpKeys + j0;  // first key of the step
+      float v[32];                           // v[j * kG + g]: partial dots
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        as[g] = alpha;
-        ls[g] = ls[g] * alpha + sum;
-        ms[g] = m_new;
+      for (int j = 0; j < kSub; ++j) {
+        float kv[E];
+        load_vec<E>(kd + (r0 + j) * D + lane * E, kv);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          float x = 0.0f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) x += qr[g][e] * kv[e];
+          v[j * kG + g] = x;
+        }
       }
-    }
-    __syncthreads();
-
+      const float dot = transpose_sum(v, lane);  // every lane shuffles
+      const bool ok = s_lo + t * kBK + r0 + lane_key < s_hi;
+      const float sc = ok ? dot : kNegInf;
+      float mx = sc;
 #pragma unroll
-    for (int i = 0; i < kMaxAcc; ++i) {
-      const int e = tid + kThreads * i;
-      if (e < n_elems) {
-        const int g = e / D;
-        const int d = e % D;
-        const float* prow = ps + g * kBK;
-        float a = acc[i] * as[g];
-        for (int j = 0; j < kBK; ++j) a += prow[j] * vs[j * (D + 1) + d];
-        acc[i] = a;
+      for (int off = kG; off < 32; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m, mx);
+      const float alpha = exp2f(m - m_new);
+      const float p = ok ? exp2f(sc - m_new) : 0.0f;
+      float sum = p;
+#pragma unroll
+      for (int off = kG; off < 32; off *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      m = m_new;
+      l = l * alpha + sum;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float a = __shfl_sync(0xffffffffu, alpha, g);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] *= a;
+      }
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        float vv[E];
+        load_vec<E>(vd + (r0 + j) * D + lane * E, vv);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          const float pj = __shfl_sync(0xffffffffu, p, j * kG + g);
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] += pj * vv[e];
+        }
       }
     }
   }
-  __syncthreads();  // ms and ls are final
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it now holds the warps' partials
 
+  float* wm = reinterpret_cast<float*>(smem_raw);  // kWarps x kG
+  float* wl = wm + kWarps * kG;                    // kWarps x kG
+  float* wacc = wl + kWarps * kG;                  // kWarps x kG x D
+  if (lane < groups) {
+    wm[warp * kG + lane] = m;
+    wl[warp * kG + lane] = l;
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+    if (g < groups)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        wacc[(warp * kG + g) * D + lane * E + e] = acc[g][e];
+  __syncthreads();
+
+  // this CTA's partials: the 4 warps merged
   const int64_t slot =
       (static_cast<int64_t>(b) * n_kv_heads + hk) * n_split + split;
+  for (int idx = tid; idx < groups * D; idx += kThreads) {
+    const int g = idx / D;
+    const int d = idx % D;
+    float mm = kNegInf;
 #pragma unroll
-  for (int i = 0; i < kMaxAcc; ++i) {
-    const int e = tid + kThreads * i;
-    if (e < n_elems) part_acc[slot * n_elems + e] = acc[i];
-  }
-  for (int g = tid; g < groups; g += kThreads) {
-    part_m[slot * groups + g] = ms[g];
-    part_l[slot * groups + g] = ls[g];
-  }
-}
-
-// One CTA per (h, b), one thread per column: merges the n_split partials.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      T* __restrict__ o, Strides st,
-                                      int n_heads, int n_kv_heads,
-                                      int n_split, int head_dim) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int groups = n_heads / n_kv_heads;
-  const int hk = h / groups;
-  const int g = h % groups;
-  const int64_t base =
-      (static_cast<int64_t>(b) * n_kv_heads + hk) * n_split;
-  float m_max = kNegInf;
-  for (int sp = 0; sp < n_split; ++sp)
-    m_max = fmaxf(m_max, part_m[(base + sp) * groups + g]);
-  for (int d = threadIdx.x; d < head_dim; d += blockDim.x) {
-    float l = 0.0f, a = 0.0f;
-    for (int sp = 0; sp < n_split; ++sp) {
-      const int64_t slot = base + sp;
-      const float w = expf(part_m[slot * groups + g] - m_max);
-      l += part_l[slot * groups + g] * w;
-      a += part_acc[(slot * groups + g) * head_dim + d] * w;
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, wm[w * kG + g]);
+    float ll = 0.0f, aa = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = exp2f(wm[w * kG + g] - mm);
+      ll += wl[w * kG + g] * f;
+      aa += wacc[(w * kG + g) * D + d] * f;
     }
-    o[b * st.o_b + h * st.o_h + d] = from_f32<T>(a / fmaxf(l, 1e-30f));
+    part_acc[(slot * groups + g) * D + d] = aa;
+    if (d == 0) {
+      part_m[slot * groups + g] = mm;
+      part_l[slot * groups + g] = ll;
+    }
   }
+
+  // the last CTA of this (b, hk) to finish merges the n_split partials
+  __shared__ int ticket;
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + b * n_kv_heads + hk;
+  if (tid == 0) ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  if (ticket != n_split - 1) return;
+  __threadfence();
+  // every slice's (m, l) into shared memory, then per head the weight of
+  // each slice, 2^(m_i - M) / max(l, 1e-30), then the weighted sum
+  const int64_t base = (static_cast<int64_t>(b) * n_kv_heads + hk) * n_split;
+  const int n_parts = n_split * groups;
+  float* sm = reinterpret_cast<float*>(smem_raw);  // n_split x groups
+  float* sl = sm + n_parts;                        // n_split x groups
+  for (int i = tid; i < n_parts; i += kThreads) {
+    sm[i] = __ldcg(part_m + base * groups + i);
+    sl[i] = __ldcg(part_l + base * groups + i);
+  }
+  __syncthreads();
+  if (tid < groups) {
+    float mm = kNegInf;
+    for (int sp = 0; sp < n_split; ++sp)
+      mm = fmaxf(mm, sm[sp * groups + tid]);
+    float ll = 0.0f;
+    for (int sp = 0; sp < n_split; ++sp)
+      ll += sl[sp * groups + tid] * exp2f(sm[sp * groups + tid] - mm);
+    const float inv = 1.0f / fmaxf(ll, 1e-30f);
+    for (int sp = 0; sp < n_split; ++sp)
+      sm[sp * groups + tid] = exp2f(sm[sp * groups + tid] - mm) * inv;
+  }
+  __syncthreads();
+  // every load of a batch of 4 slices in flight at once
+  constexpr int kPer = (kG * D + kThreads - 1) / kThreads;
+  float aa[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) aa[i] = 0.0f;
+#pragma unroll 4
+  for (int sp = 0; sp < n_split; ++sp) {
+    const float* src = part_acc + (base + sp) * groups * D;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = tid + i * kThreads;
+      if (idx < groups * D)
+        aa[i] += __ldcg(src + idx) * sm[sp * groups + idx / D];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = tid + i * kThreads;
+    if (idx < groups * D)
+      o[b * st.o_b + (hk * groups + idx / D) * st.o_h + idx % D] =
+          from_f32<T>(aa[i]);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
-template <typename T, int D>
-cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const int* pos, float* part_acc, float* part_m,
-                         float* part_l, void* o, const Strides& st,
-                         int batch, int n_heads, int n_kv_heads,
-                         int max_len, int window, int n_split, float scale,
-                         cudaStream_t stream) {
+// The launch arguments after the tensors, passed down unchanged.
+struct Shape {
+  int batch, n_heads, n_kv_heads, max_len, window, n_split;
+  float scale;
+};
+
+struct Buffers {
+  const void *q, *k, *v;
+  const int* pos;
+  float *part_acc, *part_m, *part_l;
+  int* counters;
+  void* o;
+};
+
+template <typename T, int D, int kG>
+cudaError_t launch_typed(const Buffers& x, const Strides& st,
+                         const Shape& sh, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, D, kG>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(split_smem_bytes<D>(kMaxGroups)));
+      decode_attention_kernel<T, D, kG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
-  const int groups = n_heads / n_kv_heads;
-  const dim3 grid(n_split, n_kv_heads, batch);
-  decode_split_kernel<T, D>
-      <<<grid, kThreads, split_smem_bytes<D>(groups), stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), pos, part_acc, part_m, part_l, st,
-          n_heads, n_kv_heads, max_len, window, n_split, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(n_heads, batch), D, 0, stream>>>(
-      part_acc, part_m, part_l, static_cast<T*>(o), st, n_heads, n_kv_heads,
-      n_split, D);
+  const dim3 grid(sh.n_split, sh.n_kv_heads, sh.batch);
+  decode_attention_kernel<T, D, kG><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x.q), static_cast<const T*>(x.k),
+      static_cast<const T*>(x.v), x.pos, x.part_acc, x.part_m, x.part_l,
+      x.counters, static_cast<T*>(x.o), st, sh.n_heads, sh.n_kv_heads,
+      sh.max_len, sh.window, sh.n_split, sh.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
+// kG: the query heads per cache head rounded up to 4, 8 or 16.
+template <typename T, int D>
+cudaError_t launch_groups(const Buffers& x, const Strides& st,
+                          const Shape& sh, cudaStream_t stream) {
+  const int groups = sh.n_heads / sh.n_kv_heads;
+  if (groups <= 4) return launch_typed<T, D, 4>(x, st, sh, stream);
+  if (groups <= 8) return launch_typed<T, D, 8>(x, st, sh, stream);
+  return launch_typed<T, D, kMaxGroups>(x, st, sh, stream);
+}
+
 template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k,
-                       const void* v, const int* pos, float* part_acc,
-                       float* part_m, float* part_l, void* o,
-                       const Strides& st, int batch, int n_heads,
-                       int n_kv_heads, int max_len, int window, int n_split,
-                       float scale, cudaStream_t stream) {
+cudaError_t launch_dim(int head_dim, const Buffers& x, const Strides& st,
+                       const Shape& sh, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch_typed<T, 32>(q, k, v, pos, part_acc, part_m, part_l, o,
-                                 st, batch, n_heads, n_kv_heads, max_len,
-                                 window, n_split, scale, stream);
+      return launch_groups<T, 32>(x, st, sh, stream);
     case 64:
-      return launch_typed<T, 64>(q, k, v, pos, part_acc, part_m, part_l, o,
-                                 st, batch, n_heads, n_kv_heads, max_len,
-                                 window, n_split, scale, stream);
+      return launch_groups<T, 64>(x, st, sh, stream);
     case 128:
-      return launch_typed<T, 128>(q, k, v, pos, part_acc, part_m, part_l, o,
-                                  st, batch, n_heads, n_kv_heads, max_len,
-                                  window, n_split, scale, stream);
+      return launch_groups<T, 128>(x, st, sh, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -284,38 +470,39 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k,
 // q (B, H, D), caches (B, S, Hkv, D) and o (B, H, D) of one dtype (0:
 // float32, 1: bfloat16), read and written through the 10 element strides in
 // `strides` (q: batch, head; k and v: batch, position, head; o: batch,
-// head); pos (B,) int32 on the device. The workspace holds
+// head); pos (B,) int32 on the device; n_split slices per (sequence,
+// cache head). The workspace holds
 // B * Hkv * n_split * (H / Hkv) * (D + 2) floats: part_acc, part_m and
-// part_l. Launches the split pass and the merge on `stream` and returns a
-// CUDA error code: 0 when both launches were accepted. The caller checks
-// shapes, types, devices, alignment and H / Hkv <= 16.
+// part_l; `counters` holds B * Hkv int32 tickets, zero before the launch
+// and zero again after it. Launches one kernel on `stream` and returns a
+// CUDA error code: 0 when the launch was accepted. The caller checks
+// shapes, types, devices, alignment, H / Hkv <= 16 and n_split <= 64.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int* pos,
                                        float* part_acc, float* part_m,
-                                       float* part_l, void* o,
+                                       float* part_l, int* counters, void* o,
                                        const int64_t* strides, int batch,
                                        int n_heads, int n_kv_heads,
                                        int max_len, int head_dim, int dtype,
-                                       int window, int n_split, float scale,
-                                       void* stream) {
+                                       int window, int n_split,
+                                       float scale, void* stream) {
   if (batch <= 0 || n_heads <= 0) return static_cast<int>(cudaSuccess);
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
-      n_heads / n_kv_heads > kMaxGroups || n_split <= 0)
+      n_heads / n_kv_heads > kMaxGroups || n_split <= 0 ||
+      n_split > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{strides[0], strides[1], strides[2], strides[3],
                    strides[4], strides[5], strides[6], strides[7],
                    strides[8], strides[9]};
+  const Buffers x{q, k, v, pos, part_acc, part_m, part_l, counters, o};
+  const Shape sh{batch, n_heads, n_kv_heads, max_len, window, n_split,
+                 scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dim<float>(head_dim, q, k, v, pos, part_acc, part_m, part_l,
-                            o, st, batch, n_heads, n_kv_heads, max_len,
-                            window, n_split, scale, s);
+    err = launch_dim<float>(head_dim, x, st, sh, s);
   else if (dtype == 1)
-    err = launch_dim<__nv_bfloat16>(head_dim, q, k, v, pos, part_acc,
-                                    part_m, part_l, o, st, batch, n_heads,
-                                    n_kv_heads, max_len, window, n_split,
-                                    scale, s);
+    err = launch_dim<__nv_bfloat16>(head_dim, x, st, sh, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

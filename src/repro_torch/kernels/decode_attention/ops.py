@@ -1,12 +1,19 @@
 """Public wrapper of the decode_attention kernel (the counterpart of
 `repro.kernels.decode_attention.ops.decode_bhd`).
 
-On CUDA tensors it launches the hand-written split-KV kernel and its
-merge (`decode_attention.cu`, one C call, counted as one launch) on the
+On CUDA tensors it launches the hand-written split-KV kernel
+(`decode_attention.cu`: one launch, which also merges the slices) on the
 current stream; on CPU tensors, or with `use_kernel=False`, it runs the
 plain PyTorch version (`ref.py`). There is no other fallback: any other
 device, dtype, head_dim or layout raises. `pos` stays on the device:
 nothing on the path reads it back to the host.
+
+The kernel's last CTA of each (sequence, cache head) merges the slices; it
+finds out that it is last from a ticket counter in `counters(device, n)`,
+an int32 buffer kept per device, zeroed once when it is made and reset to
+0 by the kernel itself. The buffer assumes one stream at a time: two
+launches in flight at once on two streams of one device would share
+tickets.
 """
 from __future__ import annotations
 
@@ -26,19 +33,39 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "decode_attention", Path(__file__).with_name("decode_attention.cu"),
     "decode_attention_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I, _I,
-     _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I,
+     _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
 
 MAX_GROUPS = 16      # query heads per cache head the kernel holds
 SMS = 132            # streaming multiprocessors of an H100 SXM
-BLOCK_K = 64         # keys per tile of the split pass
+WAVES = 2            # CTAs per SM that the slices may fill
+SLICE_KEYS = 128     # fewest cache rows per slice
+MAX_SPLITS = 64      # most slices the kernel merges (kMaxSplits)
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def n_splits(batch: int, n_kv_heads: int, max_len: int) -> int:
-    """Slices per (sequence, cache head): enough CTAs for two per SM,
-    and no more slices than 64-key tiles in the cache."""
-    want = -(-2 * SMS // max(batch * n_kv_heads, 1))
-    return max(1, min(want, -(-max_len // BLOCK_K)))
+    """Slices per (sequence, cache head): the most that keep the grid
+    within WAVES CTAs per SM, with at least SLICE_KEYS rows of the cache
+    per slice and at most MAX_SPLITS; at least one."""
+    want = WAVES * SMS // max(batch * n_kv_heads, 1)
+    return max(1, min(want, max_len // SLICE_KEYS, MAX_SPLITS))
+
+
+def counters(device, n: int) -> torch.Tensor:
+    """The kernel's int32 ticket counters on `device`, at least `n` of
+    them: made zeroed once, replaced by a zeroed buffer twice as large
+    when a call needs more, and kept. The kernel leaves them at 0, so no
+    call zeroes them (that would be a second launch per call) and a CUDA
+    graph may replay the kernel."""
+    device = torch.device(device)
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else n)
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -80,8 +107,8 @@ def _positions(pos, batch: int, device) -> torch.Tensor:
 
 
 def launch(q, k_cache, v_cache, pos, out, *, window, scale, stream) -> int:
-    """Launch the split pass and the merge on `stream` for checked
-    tensors; returns the CUDA error code (0: accepted)."""
+    """Launch the kernel on `stream` for checked tensors; returns the CUDA
+    error code (0: accepted)."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     split = n_splits(b, hkv, s)
@@ -90,12 +117,14 @@ def launch(q, k_cache, v_cache, pos, out, *, window, scale, stream) -> int:
                        device=q.device)
     acc, m, l = work[:parts * d], work[parts * d:parts * (d + 1)], \
         work[parts * (d + 1):]
+    tickets = counters(q.device, b * hkv)
     strides = (ctypes.c_int64 * 10)(
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2])
     return KERNEL.function()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), strides,
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), strides,
         b, h, hkv, s, d, DTYPES[q.dtype], window, split, scale, stream)
 
 

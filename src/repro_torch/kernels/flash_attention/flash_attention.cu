@@ -12,52 +12,85 @@
 //     j < Skv  and  (!causal or j <= i + q_offset)
 //              and  (!window or j >  i + q_offset - window)
 //
-// Bound: at the serving shapes (S up to 1,024, head_dim 128) the work is
-// 4 * S^2/2 * D operations per (b, h) against 4 * S * D bytes of bf16
-// input, far above the H100's 295 operations per byte: bound by
-// operations. This first version computes in float32 on the CUDA cores
-// (no tensor cores), so it sits far from the bf16 tensor-core bound; the
-// numbers are in PERF.md. wgmma, TMA and warp specialisation are later
-// work.
+// The final division is by max(l, 1e-30), as in the Pallas kernel. Keys
+// are masked by length (j < Skv), so S need not be a multiple of a tile and
+// the wrapper neither pads nor slices; key tiles that lie wholly outside
+// the causal / window band of a query tile are skipped; tensors are read
+// through their strides, in the model's (B, S, H, D) layout. None of this
+// changes the result on rows that see at least one key.
 //
-// Design: one CTA of 128 threads per (64-query tile, head, batch row),
-// heaviest causal tiles launched first. The query tile and each 32-key
-// tile of K and V are staged in shared memory as float32 (rows padded by
-// one float, so the column walks are free of bank conflicts). Each thread
-// owns a 4 x 4 block of the score tile and 4 rows x D/8 columns of the
-// accumulator; a row's max and sum are reduced over its 8 threads with
-// warp shuffles. Differences from the Pallas kernel, none of which
-// changes the result on rows that see at least one key:
-//   * keys are masked by length (j < Skv), so S need not be a multiple of
-//     the tile and the wrapper neither pads nor slices;
-//   * key tiles that lie wholly outside the causal / window band of the
-//     query tile are skipped;
-//   * tensors are read through their strides, in the model's (B, S, H, D)
-//   layout, with no transposes.
-// The final division is by max(l, 1e-30), as in the Pallas kernel.
+// Bound: operations. At the serving shape (1, 32 heads over 8, S = 1,024,
+// head_dim 128, causal) the work is 4 * D per (query, visible key): 8.6
+// GFLOP against 16.8 MB of bf16 in and out, 8.694 us on the bf16 tensor
+// cores (989 TFLOP/s) against 5.0 us of bytes.
+//
+// Two kernels, chosen by dtype:
+//
+// bfloat16 (`flash_attention_tc_kernel`): the tensor cores. One CTA per
+// (128-query tile, head, batch row), the heaviest causal tiles first (the
+// tile index varies slowest over the grid), of two consumer warpgroups
+// that own 64 query rows each and one producer warp. The producer's one
+// thread copies the Q tile once and each 64-key tile of K and V by TMA,
+// from the strided (B, S, H, D) tensors through tensor maps built on the
+// host per call, into a ring of three stages with the hardware's 128-byte
+// swizzle (64-byte at head_dim 32); rows past S arrive as zeros. A stage's
+// `full` mbarrier counts the bytes of its copies, its `empty` mbarrier the
+// 256 consumer threads done with it; the producer refills a stage as soon
+// as it is empty, so copies run up to three tiles ahead of the products
+// and the two warpgroups drift apart freely. Per tile and warpgroup: S =
+// Q K^T by D / 16 wgmma (m64n64k16, both operands K-major in shared
+// memory); the online softmax in registers on the accumulator's fragment
+// (a row's max reduced over the 4 lanes that share it, exp2 on the
+// special-function unit with the scale folded into one FMA, the sum kept
+// per thread and reduced once at the end); P rounded to bf16 in the
+// registers that held S, which is the A operand of O += P V by 4
+// register-A wgmma (m64nDk16, V MN-major in shared memory). The products
+// of one tile overlap the softmax of the next: S of tile t is started
+// before P V of tile t - 1, and the softmax of tile t runs while P V of
+// tile t - 1 is on the tensor cores. O stays in float32 registers and is
+// divided and rounded once. Tiles that cross the diagonal, the window edge
+// or Skv are masked (to -inf); a warpgroup skips the tiles that none of
+// its rows sees. P is rounded to bf16 for P V, as FlashAttention-2/3 and
+// SDPA round it; the Pallas kernel keeps it in float32. A row that sees no
+// key at all gives 0 (the Pallas kernel: the mean of the values it
+// covered); no caller asks for one. Shared memory at D = 128: Q 32 KB + 3
+// x (K 16 KB + V 16 KB), one CTA per SM (about 160 registers a thread).
+//
+// float32 (`flash_attention_kernel`): the CUDA cores, unchanged since its
+// first version. TF32 or bf16 products cannot meet the reference's float32
+// tolerance (2e-5), so this instance stays in float32 FMAs: one CTA of 128
+// threads per (64-query tile, head, batch row); the query tile and each
+// 32-key tile of K and V staged in shared memory as float32 (rows padded
+// by one float against bank conflicts); each thread owns a 4 x 4 block of
+// the score tile and 4 rows x D/8 columns of the accumulator; a row's max
+// and sum are reduced over its 8 threads with warp shuffles.
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "../hopper.cuh"
 #include "../tiles.cuh"
 
 namespace {
 
 using tiles::from_f32;
 using tiles::load_rows;
-using tiles::to_f32;
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
-constexpr int kThreads = 128;      // 16 row groups x 8 column lanes
-constexpr int kBQ = 64;            // query rows per CTA (16 x 4)
-constexpr int kBK = 32;            // keys per tile (8 x 4)
 
 // Element strides of the batch, sequence and head axes of a (B, S, H, D)
 // tensor; the head_dim axis has stride 1.
 struct Strides {
   int64_t b, s, h;
 };
+
+// ---- float32: CUDA cores ----------------------------------------------------
+
+constexpr int kThreads = 128;      // 16 row groups x 8 column lanes
+constexpr int kBQ = 64;            // query rows per CTA (16 x 4)
+constexpr int kBK = 32;            // keys per tile (8 x 4)
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -245,16 +278,420 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k,
   }
 }
 
+// ---- bfloat16: tensor cores -------------------------------------------------
+
+constexpr int kConsumers = 256;  // two warpgroups
+constexpr int kTcThreads = kConsumers + 32;  // and one producer warp
+constexpr int kTcBQ = 128;       // query rows per CTA, 64 per warpgroup
+constexpr int kTcBK = 64;        // keys per tile
+constexpr int kStages = 3;       // K / V ring
+
+// Shared-memory geometry of one CTA at head_dim D: Q, K and V tiles are
+// boxes of kBoxCols columns (one swizzle row of kSwizzle bytes) by the
+// tile's rows, D / kBoxCols boxes side by side.
+template <int D>
+struct TcTile {
+  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kBoxCols = kSwizzle / 2;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kAtom = 8 * kSwizzle;       // 8 swizzled rows
+  static constexpr int kQBox = kTcBQ * kSwizzle;   // bytes
+  static constexpr int kKVBox = kTcBK * kSwizzle;
+  static constexpr int kQBytes = kQBox * kBoxes;
+  static constexpr int kKVBytes = kKVBox * kBoxes;
+  // 1,024 for aligning the tiles to a swizzle atom; 64 for the barriers
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kStages * kKVBytes + 64;
+};
+
+// O (m64nD) += P (64 x 16 keys, bf16 in registers) * V (16 keys x D).
+template <int D>
+__device__ __forceinline__ void pv_step(float* o, const uint32_t* p,
+                                        uint64_t v_desc);
+template <>
+__device__ __forceinline__ void pv_step<32>(float* o, const uint32_t* p,
+                                            uint64_t v_desc) {
+  hopper::wgmma_rs_m64n32k16(o, p, v_desc, 1);
+}
+template <>
+__device__ __forceinline__ void pv_step<64>(float* o, const uint32_t* p,
+                                            uint64_t v_desc) {
+  hopper::wgmma_rs_m64n64k16(o, p, v_desc, 1);
+}
+template <>
+__device__ __forceinline__ void pv_step<128>(float* o, const uint32_t* p,
+                                             uint64_t v_desc) {
+  hopper::wgmma_rs_m64n128k16(o, p, v_desc, 1);
+}
+
+// Starts (and commits, without waiting) S = Q K^T for warpgroup `wg`'s 64
+// rows against the key tile `k_tile`: D / 16 products, K-major operands.
+template <int D>
+__device__ __forceinline__ void qk_mma(float (&sc)[kTcBK / 2],
+                                       const uint8_t* qs,
+                                       const uint8_t* k_tile, int wg) {
+  using G = TcTile<D>;
+  hopper::fence_operands(sc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int x = kk * 16 / G::kBoxCols;
+    const int within = (kk * 16 % G::kBoxCols) * 2;
+    const uint64_t a = hopper::make_desc(
+        qs + x * G::kQBox + wg * 64 * G::kSwizzle + within, 16, G::kAtom,
+        G::kSwizzle);
+    const uint64_t b = hopper::make_desc(k_tile + x * G::kKVBox + within, 16,
+                                         G::kAtom, G::kSwizzle);
+    hopper::wgmma_ss_m64n64k16(sc, a, b, kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::fence_operands(sc);
+}
+
+// Starts (and commits, without waiting) O += P V for the value tile
+// `v_tile`: kTcBK / 16 products, P from registers, V MN-major.
+template <int D>
+__device__ __forceinline__ void pv_mma(float (&o)[D / 2],
+                                       const uint32_t (&pa)[kTcBK / 16][4],
+                                       const uint8_t* v_tile) {
+  using G = TcTile<D>;
+  hopper::fence_operands(o);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTcBK / 16; ++kk)
+    pv_step<D>(o, pa[kk],
+               hopper::make_desc(v_tile + kk * 16 * G::kSwizzle, G::kKVBox,
+                                 G::kAtom, G::kSwizzle));
+  hopper::wgmma_commit();
+  hopper::fence_operands(o);
+}
+
+// The online softmax of one tile's raw scores q . k, in place on the
+// accumulator's fragment (rows i = 0, 1 of this thread: positions qp0 +
+// 8 i): masks them where `edge` (to -inf, which the running max, finite
+// from its start at -1e30, turns into p = 0), updates the running max m (in
+// log2 units: scores times scale * log2(e)) and this thread's share l of
+// the running sum, turns the scores into probabilities 2^(s * scale_log2 -
+// m) (one FMA and one exp2 each) and returns each row's rescale factor in
+// alpha.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kTcBK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool edge,
+                                             int k0, int qp0, int col0,
+                                             int kv_len, int causal,
+                                             int window, float scale_log2) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < kTcBK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = sc[4 * j + 2 * i + c];
+        if (edge) {
+          const int kp = k0 + 8 * j + col0 + c;
+          const int qp = qp0 + 8 * i;
+          bool ok = kp < kv_len;
+          if (causal) ok = ok && kp <= qp;
+          if (window) ok = ok && kp > qp - window;
+          v = ok ? v : -INFINITY;
+          sc[4 * j + 2 * i + c] = v;
+        }
+        mx[i] = fmaxf(mx[i], v);
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the row's 4 threads are lanes that differ in their low 2 bits
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    alpha[i] = hopper::exp2_approx(m[i] - m_new);
+    m[i] = m_new;
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kTcBK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float p = hopper::exp2_approx(
+            fmaf(sc[4 * j + 2 * i + c], scale_log2, -m[i]));
+        sc[4 * j + 2 * i + c] = p;
+        sum[i] += p;
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+}
+
+// P as the A operand of P V: bf16 pairs, 16 keys (4 registers) per product.
+__device__ __forceinline__ void pack_p(const float (&sc)[kTcBK / 2],
+                                       uint32_t (&pa)[kTcBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTcBK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] =
+          hopper::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// Thread 0: the TMA copies of key tile t (K and V) into its ring stage.
+template <int D>
+__device__ __forceinline__ void load_kv_tile(uint8_t* ks, uint8_t* vs,
+                                             uint64_t* full,
+                                             const CUtensorMap* tk,
+                                             const CUtensorMap* tv, int t,
+                                             int k_begin, int hk, int b) {
+  using G = TcTile<D>;
+  const int s = t % kStages;
+  const int k0 = k_begin + t * kTcBK;
+  hopper::mbar_arrive_expect_tx(&full[s], 2 * G::kKVBytes);
+#pragma unroll
+  for (int x = 0; x < G::kBoxes; ++x) {
+    hopper::tma_load_4d(ks + s * G::kKVBytes + x * G::kKVBox, tk, &full[s],
+                        x * G::kBoxCols, hk, k0, b);
+    hopper::tma_load_4d(vs + s * G::kKVBytes + x * G::kKVBox, tv, &full[s],
+                        x * G::kBoxCols, hk, k0, b);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              __nv_bfloat16* __restrict__ o, Strides so,
+                              int n_heads, int n_kv_heads, int q_len,
+                              int kv_len, int q_offset, int causal,
+                              int window, float scale_log2) {
+  using G = TcTile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) &
+                            1023);
+  uint8_t* ks = qs + G::kQBytes;                 // kStages x (K tile)
+  uint8_t* vs = ks + kStages * G::kKVBytes;      // kStages x (V tile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * G::kKVBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;
+  const int b = blockIdx.z;
+  const int hk = h * n_kv_heads / n_heads;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+
+  // the keys some row of this tile may see: [k_begin, k_end)
+  const int q_rows = min(kTcBQ, q_len - q0);
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q0 + q_rows + q_offset);
+  int k_begin = window ? max(0, q0 + q_offset - window + 1) : 0;
+  k_begin = (k_begin / kTcBK) * kTcBK;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::mbar_init(q_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp: one thread starts every copy
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, G::kQBytes);
+#pragma unroll
+      for (int x = 0; x < G::kBoxes; ++x)
+        hopper::tma_load_4d(qs + x * G::kQBox, &tq, q_full,
+                            x * G::kBoxCols, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t >= kStages)  // the consumers are done with tile t - kStages
+          hopper::mbar_wait(&empty[t % kStages], (t / kStages - 1) & 1);
+        load_kv_tile<D>(ks, vs, full, &tk, &tv, t, k_begin, hk, b);
+      }
+    }
+    return;
+  }
+
+  // this thread's rows of the tile (i = 0, 1: row0 + 8 i) and its first
+  // column of each 8-column block; this warpgroup's rows as positions
+  const int row0 = wg * 64 + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const bool has_rows = q0 + wg * 64 < q_len;
+  const int p_first = q0 + wg * 64 + q_offset;
+  const int p_last = min(q0 + wg * 64 + 63, q_len - 1) + q_offset;
+
+  constexpr int kS = kTcBK / 2;  // score registers per thread
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
+
+  // this warpgroup's tiles [t_begin, t_end): the band of key tiles that
+  // some of its rows see (the tiles outside are wholly masked)
+  auto seen = [&](int t) {
+    const int k0 = k_begin + t * kTcBK;
+    return has_rows && k0 < kv_len && !(causal && k0 > p_last) &&
+           !(window && k0 + kTcBK - 1 <= p_first - window);
+  };
+  int t_begin = 0, t_end = n_tiles;
+  while (t_begin < t_end && !seen(t_begin)) ++t_begin;
+  while (t_end > t_begin && !seen(t_end - 1)) --t_end;
+  // a tile crossing the diagonal, the window edge or kv_len is masked
+  auto edge = [&](int t) {
+    const int k0 = k_begin + t * kTcBK;
+    return k0 + kTcBK > kv_len || (causal && k0 + kTcBK - 1 > p_first) ||
+           (window && k0 <= p_last - window);
+  };
+
+  hopper::mbar_wait(q_full, 0);
+  // every tile's stage is released in order, seen or not
+  for (int t = 0; t < t_begin; ++t) {
+    hopper::mbar_wait(&full[t % kStages], (t / kStages) & 1);
+    hopper::mbar_arrive(&empty[t % kStages]);
+  }
+  if (t_begin < t_end) {
+    // S of tile t overlaps P V of tile t - 1 on the tensor cores: the
+    // scores of the next tile are started before the products of this one,
+    // and its softmax runs while those products do
+    float sc[kS];
+    uint32_t pa[kTcBK / 16][4];
+    float alpha[2];
+    hopper::mbar_wait(&full[t_begin % kStages], (t_begin / kStages) & 1);
+    qk_mma<D>(sc, qs, ks + (t_begin % kStages) * G::kKVBytes, wg);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+    softmax_tile(sc, m, l, alpha, edge(t_begin),
+                 k_begin + t_begin * kTcBK, q0 + row0 + q_offset, col0,
+                 kv_len, causal, window, scale_log2);
+    pack_p(sc, pa);
+    for (int t = t_begin + 1; t < t_end; ++t) {
+      const int s = t % kStages;
+      const int prev = (t - 1) % kStages;
+      hopper::mbar_wait(&full[s], (t / kStages) & 1);
+      qk_mma<D>(sc, qs, ks + s * G::kKVBytes, wg);
+      pv_mma<D>(acc, pa, vs + prev * G::kKVBytes);
+      hopper::wgmma_wait<1>();  // the scores of tile t
+      hopper::fence_operands(sc);
+      softmax_tile(sc, m, l, alpha, edge(t), k_begin + t * kTcBK,
+                   q0 + row0 + q_offset, col0, kv_len, causal, window,
+                   scale_log2);
+      hopper::wgmma_wait<0>();  // P V of tile t - 1
+      hopper::fence_operands(acc);
+      hopper::mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[4 * j + 2 * i] *= alpha[i];
+          acc[4 * j + 2 * i + 1] *= alpha[i];
+        }
+      pack_p(sc, pa);
+    }
+    pv_mma<D>(acc, pa, vs + ((t_end - 1) % kStages) * G::kKVBytes);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    hopper::mbar_arrive(&empty[(t_end - 1) % kStages]);
+  }
+  for (int t = t_end; t < n_tiles; ++t) {
+    hopper::mbar_wait(&full[t % kStages], (t / kStages) & 1);
+    hopper::mbar_arrive(&empty[t % kStages]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = row0 + 8 * i;
+    if (row < q_rows) {
+      const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+      __nv_bfloat16* orow = o + b * so.b + h * so.h + (q0 + row) * so.s;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+            hopper::pack_bf16(acc[4 * j + 2 * i] * inv,
+                              acc[4 * j + 2 * i + 1] * inv);
+    }
+  }
+}
+
+// `geometry`: the tensor maps of q, k and v, 11 values each (dims, byte
+// strides, box; see hopper::encode_bf16_4d), as the wrapper builds them.
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      const int64_t* st, const int64_t* geometry, int batch,
+                      int n_heads, int n_kv_heads, int q_len, int kv_len,
+                      int q_offset, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  using G = TcTile<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G::kSmem));
+  if (attr != cudaSuccess) return attr;
+  const int rows[3] = {kTcBQ, kTcBK, kTcBK};
+  for (int i = 0; i < 3; ++i)
+    if (geometry[11 * i] != D || geometry[11 * i + 7] != G::kBoxCols ||
+        geometry[11 * i + 9] != rows[i])
+      return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bf16_4d(&tq, q, geometry) ||
+      !hopper::encode_bf16_4d(&tk, k, geometry + 11) ||
+      !hopper::encode_bf16_4d(&tv, v, geometry + 22))
+    return cudaErrorInvalidValue;
+  const Strides so{st[9], st[10], st[11]};
+  const dim3 grid(n_heads, (q_len + kTcBQ - 1) / kTcBQ, batch);
+  flash_attention_tc_kernel<D><<<grid, kTcThreads, G::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, n_heads, n_kv_heads,
+      q_len, kv_len, q_offset, causal, window,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tc_dim(int head_dim, const void* q, const void* k,
+                          const void* v, void* o, const int64_t* st,
+                          const int64_t* geometry, int batch, int n_heads,
+                          int n_kv_heads, int q_len, int kv_len,
+                          int q_offset, int causal, int window, float scale,
+                          cudaStream_t stream) {
+  switch (head_dim) {
+    case 32:
+      return launch_tc<32>(q, k, v, o, st, geometry, batch, n_heads,
+                           n_kv_heads, q_len, kv_len, q_offset, causal,
+                           window, scale, stream);
+    case 64:
+      return launch_tc<64>(q, k, v, o, st, geometry, batch, n_heads,
+                           n_kv_heads, q_len, kv_len, q_offset, causal,
+                           window, scale, stream);
+    case 128:
+      return launch_tc<128>(q, k, v, o, st, geometry, batch, n_heads,
+                            n_kv_heads, q_len, kv_len, q_offset, causal,
+                            window, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q (B, Sq, H, D), k and v (B, Skv, Hkv, D), o (B, Sq, H, D), all of one
 // dtype (0: float32, 1: bfloat16), read and written through the 12 element
 // strides in `strides` (batch, sequence, head of q, k, v, o in turn).
-// Launches on `stream` and returns a CUDA error code: 0 when the launch was
-// accepted. The caller checks shapes, types, devices and alignment.
+// bfloat16 also takes `geometry`: the TMA tensor maps of q, k and v (11
+// values each: dims, byte strides, box), built by the wrapper; float32
+// ignores it. Launches on `stream` and returns a CUDA error code: 0 when
+// the launch was accepted. The caller checks shapes, types, devices and
+// alignment.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
-                                      const int64_t* strides, int batch,
+                                      const int64_t* strides,
+                                      const int64_t* geometry, int batch,
                                       int n_heads, int n_kv_heads, int q_len,
                                       int kv_len, int head_dim, int dtype,
                                       int q_offset, int causal, int window,
@@ -266,10 +703,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     err = launch_dim<float>(head_dim, q, k, v, o, strides, batch, n_heads,
                             n_kv_heads, q_len, kv_len, q_offset, causal,
                             window, scale, s);
-  else if (dtype == 1)
-    err = launch_dim<__nv_bfloat16>(head_dim, q, k, v, o, strides, batch,
-                                    n_heads, n_kv_heads, q_len, kv_len,
-                                    q_offset, causal, window, scale, s);
+  else if (dtype == 1 && geometry != nullptr)
+    err = launch_tc_dim(head_dim, q, k, v, o, strides, geometry, batch,
+                        n_heads, n_kv_heads, q_len, kv_len, q_offset, causal,
+                        window, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -5,8 +5,13 @@ On CUDA tensors it launches the hand-written kernel
 (`flash_attention.cu`) on the current stream; on CPU tensors, or with
 `use_kernel=False`, it runs the plain PyTorch version (`ref.py`). There is
 no other fallback: any other device, dtype, head_dim or layout raises.
-The kernel reads the model's (B, S, H, D) layout through its strides, and
-masks keys by length, so nothing is padded, sliced or transposed.
+The C entry point holds two kernels and picks one by dtype: bfloat16 runs
+on the tensor cores (wgmma, with Q, K and V copied by TMA through tensor
+maps that this wrapper describes per call, `tensor_map_geometry`);
+float32 runs on the CUDA cores in float32 FMAs, since TF32 or bf16
+products cannot meet the reference's float32 tolerance. Both read the
+model's (B, S, H, D) layout through its strides and mask keys by length,
+so nothing is padded, sliced or transposed.
 """
 from __future__ import annotations
 
@@ -23,11 +28,34 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "flash_attention", Path(__file__).with_name("flash_attention.cu"),
     "flash_attention_launch",
-    [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I, _I, _I, _I, _I, _I,
-     _I, _I, _I, _I, ctypes.c_float, _P])
+    [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64),
+     ctypes.POINTER(ctypes.c_int64), _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     ctypes.c_float, _P])
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: rows of the bfloat16 kernel's query tile and key tile (kTcBQ, kTcBK)
+BLOCK_Q, BLOCK_KV = 128, 64
+
+
+def tensor_map_geometry(t: torch.Tensor, rows: int) -> tuple[int, ...]:
+    """The 11 numbers of the TMA tensor map over a (B, S, H, D) tensor
+    whose tiles are `rows` sequence positions of one head: the dims
+    innermost first (D, H, S, B) in elements; the byte strides of H, S
+    and B; the box (columns, 1, rows, 1), whose columns span one swizzle
+    row (128 bytes, or the whole row where it is shorter). A dim of size 1
+    gets the stride it would have in a packed tensor: its coordinate is
+    always 0, and the tensor map wants 16-byte multiples."""
+    b, s, h, d = t.shape
+    size = t.element_size()
+    strides = [t.stride(2) * size, t.stride(1) * size, t.stride(0) * size]
+    inner = d * size
+    for i, n in enumerate((h, s, b)):
+        if n == 1:
+            strides[i] = inner
+        inner = strides[i] * n
+    swizzle = min(d * size, 128)
+    return (d, h, s, b, *strides, swizzle // size, 1, rows, 1)
 
 
 def _check(q, k, v) -> None:
@@ -54,9 +82,9 @@ def _check(q, k, v) -> None:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """`t` itself if the kernel's 16-byte row loads may read it in place
-    (unit stride on head_dim, rows and base 16-byte aligned), else a
-    contiguous copy."""
+    """`t` itself if the kernel's 16-byte row loads and TMA copies may
+    read it in place (unit stride on head_dim, rows and base 16-byte
+    aligned), else a contiguous copy."""
     vec = 16 // t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:-1])):
@@ -72,10 +100,16 @@ def launch(q, k, v, out, *, causal, window, scale, q_offset, stream) -> int:
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
+    geometry = None
+    if q.dtype == torch.bfloat16:
+        geometry = (ctypes.c_int64 * 33)(
+            *tensor_map_geometry(q, BLOCK_Q),
+            *tensor_map_geometry(k, BLOCK_KV),
+            *tensor_map_geometry(v, BLOCK_KV))
     return KERNEL.function()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, h, hkv, sq, skv, d, DTYPES[q.dtype], q_offset, int(causal),
-        window, scale, stream)
+        geometry, b, h, hkv, sq, skv, d, DTYPES[q.dtype], q_offset,
+        int(causal), window, scale, stream)
 
 
 def attention_bhsd(q, k, v, *, causal=True, window=0, use_kernel=True,

@@ -183,12 +183,80 @@ class TestWrappers:
         with pytest.raises(ValueError, match=r"pos must be \(\) or \(1,\)"):
             dec_ops.decode_bhd(kv[:, 0], kv, kv, torch.tensor([1, 2]))
 
-    @pytest.mark.parametrize("b,hkv,s,want", [(1, 8, 1536, 24),
-                                              (4, 8, 1536, 9),
-                                              (4, 8, 100, 2),
+    @pytest.mark.parametrize("b,hkv,s,want", [(1, 8, 1536, 12),
+                                              (4, 8, 1536, 8),
+                                              (4, 8, 100, 1),
                                               (64, 8, 1536, 1)])
     def test_split_count(self, b, hkv, s, want):
+        """At most two CTAs per SM (132 SMs), at least 128 cache rows per
+        slice; (4, 8, 1536) is Llama-3-8B's decode in the serve cell."""
         assert dec_ops.n_splits(b, hkv, s) == want
+
+    @pytest.mark.parametrize("b,hkv,s,want", [(1, 1, 127, 1), (1, 1, 128, 1),
+                                              (1, 1, 256, 2),
+                                              (2, 8, 100_000, 16),
+                                              (33, 8, 4096, 1),
+                                              (0, 8, 1536, 12),
+                                              (1, 1, 100_000, 64)])
+    def test_split_count_edges(self, b, hkv, s, want):
+        assert dec_ops.n_splits(b, hkv, s) == want
+
+    def test_split_slices_hold_enough_keys(self):
+        for b in (1, 2, 4, 8, 16):
+            for s in (128, 1000, 1536, 8192):
+                split = dec_ops.n_splits(b, 8, s)
+                assert split == 1 or s // split >= dec_ops.SLICE_KEYS
+                # the most slices within WAVES CTAs per SM
+                assert split == 1 or \
+                    b * 8 * split <= dec_ops.WAVES * dec_ops.SMS
+                assert split <= dec_ops.MAX_SPLITS
+
+    def test_counters_cached_and_grown_per_device(self, monkeypatch):
+        monkeypatch.setattr(dec_ops, "_COUNTERS", {})
+        first = dec_ops.counters("cpu", 32)
+        assert first.dtype == torch.int32 and first.numel() == 32
+        assert int(first.abs().sum()) == 0
+        assert dec_ops.counters(torch.device("cpu"), 32) is first
+        assert dec_ops.counters("cpu", 8) is first       # kept, not shrunk
+        first[3] = 7          # a buffer that is kept is not zeroed again
+        assert int(dec_ops.counters("cpu", 32)[3]) == 7
+        grown = dec_ops.counters("cpu", 40)
+        assert grown is not first and grown.numel() == 64
+        assert int(grown.abs().sum()) == 0
+        assert dec_ops.counters("cpu", 40) is grown
+        meta = dec_ops.counters("meta", 4)
+        assert meta.device.type == "meta" and meta.numel() == 4
+        assert dec_ops.counters("cpu", 40) is grown
+
+    @pytest.mark.parametrize("d", [32, 64, 128])
+    def test_tensor_map_geometry_of_packed_qkv(self, d):
+        """q, k and v as the model slices them from one packed (B, S,
+        H + 2 Hkv, D) projection: strides in bytes, 16-byte multiples;
+        the box one swizzle row wide."""
+        b, s, h, hkv = 2, 77, 8, 2
+        qkv = torch.zeros(b, s, h + 2 * hkv, d, dtype=torch.bfloat16)
+        q, k = qkv[:, :, :h], qkv[:, :, h:h + hkv]
+        row = (h + 2 * hkv) * d * 2
+        cols = min(d, 64)
+        assert fa_ops.tensor_map_geometry(q, fa_ops.BLOCK_Q) == (
+            d, h, s, b, d * 2, row, row * s, cols, 1, 128, 1)
+        assert fa_ops.tensor_map_geometry(k, fa_ops.BLOCK_KV) == (
+            d, hkv, s, b, d * 2, row, row * s, cols, 1, 64, 1)
+        for t in (q, k):
+            geo = fa_ops.tensor_map_geometry(t, 64)
+            assert all(x % 16 == 0 for x in geo[4:7])
+            assert geo[7] * 2 in (64, 128)
+
+    def test_tensor_map_geometry_of_unit_dims(self):
+        """Size-1 dims get packed strides, whatever the view says."""
+        t = torch.zeros(1, 300, 16, 128, dtype=torch.bfloat16)[:, :, 3:4]
+        assert t.stride() == (300 * 16 * 128, 16 * 128, 128, 1)
+        assert fa_ops.tensor_map_geometry(t, 64) == (
+            128, 1, 300, 1, 256, 16 * 128 * 2, 16 * 128 * 2 * 300, 64, 1,
+            64, 1)
+        one = torch.zeros(3, 1, 4, 64, dtype=torch.bfloat16)
+        assert fa_ops.tensor_map_geometry(one, 128) == (
+            64, 4, 1, 3, 128, 512, 512, 64, 1, 128, 1)
 
 
 class TestModelAttention:

@@ -134,6 +134,141 @@ def test_decode_kernel_matches_plain_version(cuda_device, b, h, hkv, s, d,
     torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
 
 
+def _flash_hold(device, b, h, hkv, sq, skv, d, seed=0, **kw):
+    """The bfloat16 (tensor-core) flash kernel against its plain version
+    at the reference's bfloat16 tolerance; one launch."""
+    q, k, v = _draw(device, torch.bfloat16, seed, (b, sq, h, d),
+                    (b, skv, hkv, d), (b, skv, hkv, d))
+    before = fa_ops.KERNEL.launches
+    out = fa_ops.attention_bhsd(q, k, v, **kw)
+    assert fa_ops.KERNEL.launches == before + 1
+    ref = fa_ops.attention_bhsd(q, k, v, use_kernel=False, **kw)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_tol(torch.bfloat16))
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 1000])
+def test_flash_tc_ragged_lengths(cuda_device, s):
+    """Lengths that are no multiple of the 128-query or 64-key tile: TMA
+    fills the rows past S with zeros, the mask drops them."""
+    _flash_hold(cuda_device, 2, 8, 2, s, s, 128)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_tc_head_dims(cuda_device, d):
+    """Every head_dim the wrapper admits: 64-byte swizzle at 32, 128-byte
+    at 64 and 128 (two boxes per row)."""
+    _flash_hold(cuda_device, 1, 4, 2, 200, 200, d)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_tc_gqa(cuda_device, group):
+    _flash_hold(cuda_device, 1, 8, 8 // group, 300, 300, 128)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tc_window(cuda_device, window, d):
+    """Sliding windows: key tiles below the band are skipped, tiles on
+    its edge masked."""
+    _flash_hold(cuda_device, 2, 4, 2, 700, 700, d, window=window)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (False, 0)])
+def test_flash_tc_q_offset(cuda_device, causal, window):
+    """A chunk of queries after a longer prefix (Sq < Skv, q_offset > 0),
+    and cross attention without a mask."""
+    _flash_hold(cuda_device, 2, 8, 2, 100, 300, 128, causal=causal,
+                window=window, q_offset=200 if causal else 0)
+
+
+def _decode_hold(device, b, h, hkv, s, d, lens, dtype=torch.bfloat16,
+                 window=0, seed=1):
+    q, kc, vc = _draw(device, dtype, seed, (b, h, d), (b, s, hkv, d),
+                      (b, s, hkv, d))
+    pos = torch.tensor(lens, dtype=torch.int32, device=device)
+    before = dec_ops.KERNEL.launches
+    out = dec_ops.decode_bhd(q, kc, vc, pos, window=window)
+    assert dec_ops.KERNEL.launches == before + 1
+    ref = dec_ops.decode_bhd(q, kc, vc, pos, window=window,
+                             use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_edge_positions(cuda_device, dtype):
+    """pos = 1 (one visible row, most slices empty) and pos = max_len."""
+    _decode_hold(cuda_device, 4, 32, 8, 1536, 128, [1, 1536, 1, 1536],
+                 dtype=dtype)
+
+
+@pytest.mark.parametrize("window", [64, 300])
+def test_decode_kernel_bf16_window(cuda_device, window):
+    _decode_hold(cuda_device, 4, 32, 8, 1536, 128, [1, 50, 700, 1536],
+                 window=window)
+
+
+def test_decode_kernel_batch_one(cuda_device):
+    """One sequence: the most slices per (sequence, cache head)."""
+    _decode_hold(cuda_device, 1, 32, 8, 1536, 128, [1234])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_kernel_sixteen_heads_per_cache_head(cuda_device, d):
+    _decode_hold(cuda_device, 2, 32, 2, 1024, d, [999, 17])
+
+
+def test_decode_kernel_replays_in_a_cuda_graph(cuda_device):
+    """One launch per call, captured in a CUDA graph and replayed three
+    times with other positions: each replay agrees with the plain
+    version, so the kernel leaves its ticket counters at 0."""
+    b, h, hkv, s, d = 4, 32, 8, 1536, 128
+    q, kc, vc = _draw(cuda_device, torch.bfloat16, 2, (b, h, d),
+                      (b, s, hkv, d), (b, s, hkv, d))
+    pos = torch.ones(b, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up: build, make the counters
+        dec_ops.decode_bhd(q, kc, vc, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dec_ops.KERNEL.launches
+    with torch.cuda.graph(graph):
+        out = dec_ops.decode_bhd(q, kc, vc, pos)
+    assert dec_ops.KERNEL.launches == before + 1
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        pos.copy_(torch.tensor(rng.integers(1, s + 1, b), dtype=torch.int32))
+        graph.replay()
+        ref = dec_ops.decode_bhd(q, kc, vc, pos, use_kernel=False)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **_tol(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert int(dec_ops.counters(cuda_device, b * hkv)[:b * hkv].abs().sum()) \
+        == 0
+
+
+def test_decode_kernel_is_one_launch(cuda_device):
+    """The profiler sees one kernel on the device per call: the split
+    pass merges its own slices."""
+    from torch.profiler import ProfilerActivity, profile
+    q, kc, vc = _draw(cuda_device, torch.bfloat16, 3, (4, 32, 128),
+                      (4, 1536, 8, 128), (4, 1536, 8, 128))
+    pos = torch.full((4,), 1000, dtype=torch.int32, device=cuda_device)
+    dec_ops.decode_bhd(q, kc, vc, pos)     # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dec_ops.decode_bhd(q, kc, vc, pos)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "emory" not in e.name]
+    assert kernels and all("decode_attention_kernel" in n for n in kernels)
+    assert len(kernels) == 1
+
+
 def test_model_goes_through_both_kernels(cuda_device):
     """Prefill: one flash launch per layer; decode: one decode launch per
     layer. The plain path agrees at float32 to the kernels' bound."""
