@@ -15,8 +15,9 @@ weights from seed 0, 4 batch slots, a 1,536-position cache, policy
 
 For each it prints the wall time, the summed device time of its kernels,
 the device's idle share (1 - device time / wall), the kernel launches,
-the share of the device time in each of the port's own kernels, and the
-kernels that take the most device time. Where the profiler records no
+the share of the device time in each of the port's own kernels (and, for
+a kernel of several launches such as the SSD scan's three phases, each
+part's), and the kernels that take the most device time. Where the profiler records no
 device time it prints "not measured" for the device numbers. Needs CUDA;
 exits 1 without it.
 """
@@ -33,10 +34,12 @@ ITERATIONS = 16     # decode steps in the profiled window
 PROMPT = 512        # prompt tokens of each of the 4 decoding requests
 PREFILL = 1024      # prompt tokens of the profiled prefill
 TOP = 10            # kernels listed by device time
-# the port's hand-written kernels, by a part of the name of their
-# __global__ (flash_attention_kernel in float32, flash_attention_tc_kernel
-# in bfloat16)
-OWN = ("flash_attention", "decode_attention", "ssd_scan_kernel")
+# the port's hand-written kernels, each by parts of the names of its
+# __global__ functions (flash_attention_kernel in float32,
+# flash_attention_tc_kernel in bfloat16; the SSD scan's three phases)
+OWN = {"flash_attention": ("flash_attention",),
+       "decode_attention": ("decode_attention",),
+       "ssd_scan": ("chunk_state", "state_pass", "chunk_scan")}
 
 
 def report(prof, wall: float, label: str, per: int, unit: str) -> None:
@@ -59,14 +62,22 @@ def report(prof, wall: float, label: str, per: int, unit: str) -> None:
         return
     print(f"[{label}] device time {device_us / 1e3:.2f} ms; idle share "
           f"{1.0 - device_us / 1e6 / wall:.4f}")
-    for name in OWN:
-        own = [e for e in kernels if name in e.key]
+    for name, parts in OWN.items():
+        own = [e for e in kernels if any(part in e.key for part in parts)]
         if own:
             us = sum(getattr(e, key) for e in own)
             count = sum(e.count for e in own)
             print(f"[{label}] {name}: {us / 1e3:.3f} ms, "
                   f"{100 * us / device_us:.1f}% of the device time, "
                   f"{count} launches ({us / count:.1f} us each)")
+            for part in parts if len(parts) > 1 else ():
+                mine = [e for e in own if part in e.key]
+                pus = sum(getattr(e, key) for e in mine)
+                pcount = sum(e.count for e in mine)
+                if pcount:
+                    print(f"[{label}]   {part}: {pus / 1e3:.3f} ms, "
+                          f"{pcount} launches ({pus / pcount:.1f} us "
+                          f"each)")
     for e in sorted(kernels, key=lambda e: -getattr(e, key))[:TOP]:
         us = getattr(e, key)
         print(f"  {us / 1e3:9.3f} ms {100 * us / device_us:5.1f}% "

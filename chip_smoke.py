@@ -17,7 +17,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    could take (`bound_ms`: the larger of bytes over 3.35 TB/s and
    operations over the peak rate of their type) and the rate of
    back-to-back eager calls from Python (`wrapper_ms`,
-   `plain_eager_ms`), which the host's speed sets.
+   `plain_eager_ms`), which the host's speed sets. Beside the kernel's
+   time stands the floor of a launch of the same geometry: an empty
+   kernel, timed the same way (`launch_floor_ms`).
 2b. The two attention kernels against their plain versions, on the
    shapes of the reference's `TestFlashAttentionKernel` and
    `TestDecodeAttentionKernel` (float32 and bfloat16, its sliding windows
@@ -34,7 +36,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    the final state included; timed as in phase 2, with `ssd_chunked` as
    `plain_ms` (no single PyTorch call computes the scan: `library_ms`
    is null) and the recurrence, a Python loop of L steps, timed eagerly
-   at the reference's shapes only.
+   at the reference's shapes only. Each line gives the kernel's plan:
+   its chunk tile, the heads each CTA takes, and its launches on the
+   device per call (three phases; one count in its `launches`).
 3. The fleet engine end to end on CUDA through `run_experiment`: the
    headline row of `benchmarks/bench_sim.py` `fleet_scale`, 200 machines
    x 40 cores x 1 h of conversation-poisson at 545.455 rps, with the
@@ -141,7 +145,6 @@ SSD_CASES = ([(b, l, h, p, n, chunk, dt)
                                            (2, 512, 1, 64, 128, 256))]
              + [(1, l, 80, 64, 128, 256, "bfloat16") for l in (1024, 891)])
 SSD_MAIN = (1, 1024, 80, 64, 128, 256, "bfloat16")
-SSD_TILE = 64               # steps per chunk tile of the kernel
 # the final state, as tests/test_models.py::TestSSD holds h
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 
@@ -272,7 +275,7 @@ def phase_environment(torch, kernels) -> None:
 
 def phase_aging_kernel(torch, np, params):
     """advance_fleet (kernel) vs aging_update_ref (plain) on the card."""
-    from repro_torch.kernels.aging_update.ops import advance_fleet
+    from repro_torch.kernels.aging_update.ops import advance_fleet, empty_launch
     from repro_torch.kernels.aging_update.ref import aging_update_ref
     dev = torch.device("cuda")
     row = {}
@@ -300,7 +303,8 @@ def phase_aging_kernel(torch, np, params):
                 return aging_update_ref(*args, params)
             times = {"ms": graph_ms(kernel), "plain_ms": graph_ms(plain),
                      "wrapper_ms": eager_ms(kernel),
-                     "plain_eager_ms": eager_ms(plain)}
+                     "plain_eager_ms": eager_ms(plain),
+                     "launch_floor_ms": graph_ms(lambda: empty_launch(n))}
             bytes_ms = AGING_BYTES * n / HBM_BYTES_PER_S * 1e3
             ops_ms = AGING_OPS * n / F32_FLOP_PER_S * 1e3
             bound_ms = max(bytes_ms, ops_ms)
@@ -310,7 +314,9 @@ def phase_aging_kernel(torch, np, params):
                 f"{times['plain_ms'] * 1e3:.3f} us; eager from Python "
                 f"wrapper {times['wrapper_ms'] * 1e3:.2f} us, plain "
                 f"{times['plain_eager_ms'] * 1e3:.2f} us; bound "
-                f"{bound_ms * 1e3:.3f} us ({bound_by})")
+                f"{bound_ms * 1e3:.3f} us ({bound_by}); an empty kernel "
+                f"of the same geometry {times['launch_floor_ms'] * 1e3:.3f}"
+                f" us")
             if n == 8000:       # the shape the smoke fleet gives it
                 row = dict(times, max_abs_err=err, bound_ms=bound_ms,
                            bound_by=bound_by)
@@ -453,23 +459,24 @@ def _ssd_inputs(torch, np, case):
     return x, dt, a_log, bb, cc
 
 
-def _ssd_work(case):
+def _ssd_work(case, tile):
     """(bytes, operations) of one ssd_scan call: x read and y written, dt,
-    a_log, b and c read and the float32 final state written, each once;
-    the chunked algebra at the kernel's tile Q over the L steps, with
-    C B^T formed once for all heads: 2 L (Q N + H (Q P + 2 P N))."""
+    a_log, b and c read and the float32 final state written, each once
+    (the kernel's scratch of chunk states is not counted); the chunked
+    algebra at the kernel's tile Q (`tile`) over the L steps, with C B^T
+    formed once for all heads: 2 L (Q N + H (Q P + 2 P N))."""
     b, l, h, p, n, _, dtype = case
     size = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * l * h * p * size + b * l * h * 4 + h * 4
               + 2 * b * l * n * size + b * h * p * n * 4)
-    q = SSD_TILE
+    q = tile
     return nbytes, 2 * b * l * (q * n + h * (q * p + 2 * p * n))
 
 
 def phase_ssd_kernel(torch, np):
     """ssd_scan (kernel) vs its plain versions on the card. Returns the
     kernels line row of the main-path shape."""
-    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ops import plan, ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.mamba2 import ssd_chunked
     main_row = None
@@ -499,7 +506,9 @@ def phase_ssd_kernel(torch, np):
             raise AssertionError(f"ssd_scan disagrees with {against} at "
                                  f"{case}: max_abs_err {err:.3e}, state "
                                  f"{state_err:.3e}")
-        nbytes, ops = _ssd_work(case)
+        pl = plan(b, l, h, p, n, getattr(torch, dtype),
+                  torch.cuda.get_device_properties(0).multi_processor_count)
+        nbytes, ops = _ssd_work(case, pl.tile)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / _peak(dtype) * 1e3
         row = {"ms": graph_ms(kernel), "plain_ms": graph_ms(chunked),
@@ -518,7 +527,9 @@ def phase_ssd_kernel(torch, np):
             f"{row['plain_ms'] * 1e3:.3f} us; eager wrapper "
             f"{row['wrapper_ms'] * 1e3:.2f} us, ssd_chunked "
             f"{row['plain_eager_ms'] * 1e3:.2f} us{seq}; bound "
-            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); plan: "
+            f"tile {pl.tile}, {pl.group} heads a CTA, grid {pl.grid}, "
+            f"{pl.device_launches} device launches per call")
         if case == SSD_MAIN:
             main_row = row
     return main_row

@@ -12,45 +12,134 @@
 // with dVth unchanged where stress <= 0 or tau <= 0.
 //
 // Bound: memory. Each element reads four floats and writes one (20 B)
-// against 16 float operations, five of them exp or pow; at
-// the fleet sizes of the simulator (8,000 to 1.28M cores) one launch
-// moves 0.16 to 25.6 MB, so small fleets are bound by launch latency.
-// Design: one thread per element in a grid-stride loop with a masked
-// tail, so the wrapper neither pads nor copies. Float32 throughout, in
-// the reference's order of operations; precise expf/powf (no fast math)
-// and no fused multiply-add, so the result tracks the plain PyTorch
-// version to a few ulps.
+// against 16 float operations, five of them exp or pow; at the fleet
+// sizes of the simulator (8,000 to 1.28M cores) one launch moves 0.16 to
+// 25.6 MB. The precise exp and pow take some 200 instructions an element,
+// so a large fleet also leans on the issue rate, and a small one (8,000)
+// is a chain of dependent transcendental latencies behind the launch.
+// Design: the math is skipped where its result is known exactly (a core
+// not advanced keeps dVth; a stress of 1 raised to n is 1), so the work
+// follows the data. A small fleet goes one element a thread in blocks of
+// 256: blocks of 64 spread over every SM measured slower at 8,000 (more
+// blocks to launch, and each element's chain of exp and pow is as long).
+// A fleet of at least 1,024 elements per SM (the SM count is queried once
+// per device) goes four elements a thread with 16-byte loads and stores
+// when the five arrays are 16-byte aligned (the wrapper's output always
+// is, so a view offset into the inputs takes the one-element path), with a
+// scalar tail. Grid-stride loops with masked tails, so the wrapper neither
+// pads nor copies. Float32 throughout, in the reference's order of
+// operations; precise expf/powf (no fast math) and no fused multiply-add,
+// so the result tracks the plain PyTorch version to a few ulps.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void aging_update_kernel(const float* __restrict__ dvth,
+struct Params {
+  float n_exp, inv_n, k_fit, neg_e0, kb, c_vdd;
+};
+
+__device__ __forceinline__ float advance(float d, float temp_c, float y,
+                                         float ta, const Params& p) {
+  // a core that is not stressed, or not advanced, keeps its dVth: skip
+  // the math; and powf(1, n) is exactly 1, so a full stress skips a pow
+  const bool live = (y > 0.0f) && (ta > 0.0f);
+  if (!live) return d;
+  const float t_k = temp_c + 273.15f;
+  const float kbt = p.kb * t_k;
+  float adf = p.k_fit * expf(p.neg_e0 / kbt);
+  adf = adf * expf(p.c_vdd / kbt);
+  adf = adf * (y == 1.0f ? 1.0f : powf(y, p.n_exp));
+  const float eff_t = powf(d / adf, p.inv_n);
+  return adf * powf(eff_t + ta, p.n_exp);
+}
+
+// Elements [0, n), one a thread, grid-stride.
+__global__ void aging_update_scalar(const float* __restrict__ dvth,
                                     const float* __restrict__ temp_c,
                                     const float* __restrict__ stress,
                                     const float* __restrict__ tau,
                                     float* __restrict__ out, int64_t n,
-                                    float n_exp, float inv_n, float k_fit,
-                                    float neg_e0, float kb, float c_vdd) {
+                                    Params p) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       i < n; i += stride) {
-    const float d = dvth[i];
-    const float t_k = temp_c[i] + 273.15f;
-    const float y = stress[i];
-    const float ta = tau[i];
-    const float kbt = kb * t_k;
-    float adf = k_fit * expf(neg_e0 / kbt);
-    adf = adf * expf(c_vdd / kbt);
-    adf = adf * powf(y > 0.0f ? y : 1.0f, n_exp);
-    const bool live = (y > 0.0f) && (ta > 0.0f);
-    const float safe = live ? adf : 1.0f;
-    const float eff_t = powf(d / safe, inv_n);
-    const float next = safe * powf(eff_t + ta, n_exp);
-    out[i] = live ? next : d;
+       i < n; i += stride)
+    out[i] = advance(dvth[i], temp_c[i], stress[i], tau[i], p);
+}
+
+// Elements [0, 4 n4) four a thread by float4 (every pointer 16-byte
+// aligned), grid-stride, and the n % 4 after them one a thread.
+__global__ void aging_update_vec4(const float* __restrict__ dvth,
+                                  const float* __restrict__ temp_c,
+                                  const float* __restrict__ stress,
+                                  const float* __restrict__ tau,
+                                  float* __restrict__ out, int64_t n,
+                                  Params p) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t n4 = n / 4;
+  const float4* d4 = reinterpret_cast<const float4*>(dvth);
+  const float4* t4 = reinterpret_cast<const float4*>(temp_c);
+  const float4* s4 = reinterpret_cast<const float4*>(stress);
+  const float4* u4 = reinterpret_cast<const float4*>(tau);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int64_t v = first; v < n4; v += stride) {
+    const float4 d = d4[v], t = t4[v], s = s4[v], u = u4[v];
+    o4[v] = make_float4(advance(d.x, t.x, s.x, u.x, p),
+                        advance(d.y, t.y, s.y, u.y, p),
+                        advance(d.z, t.z, s.z, u.z, p),
+                        advance(d.w, t.w, s.w, u.w, p));
   }
+  const int64_t last = 4 * n4 + first;
+  if (last < n)
+    out[last] = advance(dvth[last], temp_c[last], stress[last], tau[last],
+                        p);
+}
+
+__global__ void empty_kernel() {}
+
+// The current device's SM count, queried once per device.
+int sm_count() {
+  constexpr int kDevices = 64;
+  static int counts[kDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < 0 || dev >= kDevices) dev = 0;
+  if (counts[dev] == 0) {
+    int sms = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        sms <= 0)
+      return 132;
+    counts[dev] = sms;
+  }
+  return counts[dev];
+}
+
+constexpr int kThreads = 256;   // threads a block
+constexpr int kPerSm = 8;       // resident blocks per SM of the four-wide path
+
+struct Grid {
+  unsigned blocks;
+  bool vec;  // four elements a thread
+};
+
+// The launch geometry of n elements whose arrays are all 16-byte aligned
+// (`aligned`) or not.
+Grid grid_for(int64_t n, bool aligned) {
+  const int64_t sms = sm_count();
+  if (aligned && n >= 4 * kThreads * sms) {
+    int64_t blocks = (n / 4 + kThreads - 1) / kThreads;
+    if (blocks > kPerSm * sms) blocks = kPerSm * sms;
+    return {static_cast<unsigned>(blocks), true};
+  }
+  // one element a thread
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 16 * sms) blocks = 16 * sms;
+  return {static_cast<unsigned>(blocks), false};
 }
 
 }  // namespace
@@ -63,13 +152,28 @@ extern "C" int aging_update_launch(const float* dvth, const float* temp_c,
                                    float inv_n, float k_fit, float neg_e0,
                                    float kb, float c_vdd, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  constexpr int64_t kMaxBlocks = 132 * 16;  // 16 resident blocks per SM
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  aging_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      dvth, temp_c, stress, tau, out, n, n_exp, inv_n, k_fit, neg_e0, kb,
-      c_vdd);
+  const Params p{n_exp, inv_n, k_fit, neg_e0, kb, c_vdd};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* const arrays[] = {dvth, temp_c, stress, tau, out};
+  bool aligned = true;
+  for (const void* q : arrays)
+    aligned = aligned && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const Grid g = grid_for(n, aligned);
+  if (g.vec) {
+    aging_update_vec4<<<g.blocks, kThreads, 0, s>>>(dvth, temp_c, stress,
+                                                     tau, out, n, p);
+  } else {
+    aging_update_scalar<<<g.blocks, kThreads, 0, s>>>(dvth, temp_c, stress,
+                                                       tau, out, n, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel launched with the geometry aging_update_launch gives n
+// aligned elements: the floor of a launch of that shape, for timing only.
+extern "C" int aging_update_empty_launch(int64_t n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const Grid g = grid_for(n, true);
+  empty_kernel<<<g.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -278,6 +278,80 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float* d, const uint32_t* a,
         "r"(accumulate));
 }
 
+// ---- warp-level matrix products (mma.sync, ldmatrix) -------------------------
+
+// Fragments of mma.m16n8k16 per lane l of a warp, g = l / 4, t = l % 4; a
+// register of two bf16 holds the lower column (or K index) in its low half.
+//   A (16 x 16, row-major): a[0] row g, columns 2t, 2t+1; a[1] row g + 8;
+//     a[2] row g, columns 2t + 8, 2t + 9; a[3] row g + 8, columns 2t + 8..9.
+//   B (16 x 8): b[0] rows (K) 2t, 2t+1 of column g; b[1] rows 2t + 8..9.
+//   C, D (16 x 8, float32): d[0], d[1] row g, columns 2t, 2t+1; d[2], d[3]
+//     row g + 8.
+// So the accumulators of two neighbouring n8 tiles, rounded pairwise to
+// bf16, are the A fragment of the next product over those 16 columns:
+// a = {pack(d0[0], d0[1]), pack(d0[2], d0[3]), pack(d1[0], d1[1]),
+// pack(d1[2], d1[3])}.
+
+// d += a * b: one m16n8k16 product, bf16 inputs, float32 accumulator.
+// Not volatile: it reads and writes registers only, so the compiler may
+// schedule it between the fragment loads.
+__device__ __forceinline__ void mma_bf16_m16n8k16(float (&d)[4],
+                                                  const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Loads four 8 x 8 matrices of 16-bit elements from shared memory: lanes
+// 8i .. 8i + 7 give the addresses of rows 0..7 of matrix i (16 bytes each,
+// 16-byte aligned), and r[i] of lane l receives row l / 4, elements 2 (l %
+// 4) and 2 (l % 4) + 1 of matrix i: the fragment layout above.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// As ldmatrix_x4, each matrix transposed: r[i] of lane l receives rows
+// 2 (l % 4) and 2 (l % 4) + 1 (low half first) of column l / 4 of matrix
+// i. So a tile stored with its K index along rows gives B (or A)
+// fragments without a transposing copy.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// The two floats of a register of two bf16 (low half first).
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// ---- programmatic dependent launch -----------------------------------------
+
+// Lets the next kernel on the stream, when launched with programmatic
+// stream serialization, start its CTAs once every CTA of this grid has
+// called this (or exited), instead of when this grid has finished.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Waits until the grids this one depends on have completed and their
+// writes are visible. A kernel launched with programmatic stream
+// serialization calls it before it reads what the previous kernel writes.
+__device__ __forceinline__ void wait_dependencies() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ---- cp.async ---------------------------------------------------------------
 
 // Copies 16 bytes from global `src` to shared `dst` asynchronously; with

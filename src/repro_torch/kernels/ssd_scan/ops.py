@@ -8,10 +8,18 @@ no other fallback: any other device, dtype, P, N or layout raises. The
 kernel masks the sequence by length, so nothing is padded, and reads x, b
 and c through their strides (slices of one packed tensor are read in
 place); only a last axis of stride other than 1 is copied.
+
+One call makes three launches on the device (chunk states, state
+passing, chunk scan; `Plan.device_launches`) and counts once in
+`KERNEL.launches`. `plan` sizes them: the chunk tile of the dtype's
+instance, the heads each CTA takes, the grids and the scratch the wrapper
+allocates for the chunk states.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from pathlib import Path
 
 import torch
@@ -23,12 +31,90 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 KERNEL = CudaKernel(
     "ssd_scan", Path(__file__).with_name("ssd_scan.cu"), "ssd_scan_launch",
-    [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I, _I, _I,
-     _I, _I, _I, _P])
+    [_P] * 10 + [ctypes.POINTER(ctypes.c_int64)] + [_I] * 9 + [_P])
 
 HEAD_DIMS = (32, 64)           # P
 STATE_DIMS = (32, 64, 128)     # N
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: steps per chunk tile of each instance (`kQf`, `kQtc` in ssd_scan.cu)
+TILES = {torch.float32: 64, torch.bfloat16: 128}
+MAX_GROUP = 8                  # heads per CTA of phases A and C (`kMaxGroup`)
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one `ssd` call runs on the card."""
+
+    batch: int
+    length: int
+    heads: int
+    head_dim: int
+    state_dim: int
+    dtype: torch.dtype
+    tile: int       # steps per chunk
+    group: int      # heads per CTA of the chunk-state and chunk-scan phases
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.length // self.tile)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        """(chunk, head group, row): the grid of phases A and C."""
+        return self.chunks, -(-self.heads // self.group), self.batch
+
+    @property
+    def device_launches(self) -> int:
+        return 3 if self.length and self.batch and self.heads else 0
+
+    def scratch_shapes(self) -> dict:
+        """name -> (shape, dtype) of the scratch each call allocates."""
+        b, h, c = self.batch, self.heads, self.chunks
+        pn = (self.head_dim, self.state_dim)
+        return {"states": ((b, h, c, *pn), torch.float32),
+                "s_last": ((b, h, c), torch.float32),
+                "s_in": ((b, h, c, *pn), self.dtype)}
+
+    @functools.cached_property
+    def scratch_layout(self) -> dict:
+        """name -> (byte offset, bytes) of each part of the scratch in one
+        allocation, each starting on a 256-byte boundary."""
+        layout, offset = {}, 0
+        for name, (shape, dtype) in self.scratch_shapes().items():
+            n = dtype.itemsize
+            for d in shape:
+                n *= d
+            layout[name] = (offset, n)
+            offset += -(-n // 256) * 256
+        return layout
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Bytes of the one allocation that holds the scratch."""
+        return max((off + n for off, n in self.scratch_layout.values()),
+                   default=0)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(batch: int, length: int, heads: int, head_dim: int,
+         state_dim: int, dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
+    """The tile is the instance's. Phases A and C run one CTA per SM (the
+    chunk scan's shared memory allows no second), each walking its group
+    of heads with the next head's tiles in flight; the head group is the
+    smallest (up to `MAX_GROUP`) that covers every (chunk, head, row) in
+    one wave of `sms` CTAs, so long prompts share C B^T over several
+    heads and short ones still spread over the SMs."""
+    tile = TILES[dtype]
+    units = -(-length // tile) * heads * batch
+    group = max(1, min(MAX_GROUP, heads, -(-units // sms)))
+    return Plan(batch, length, heads, head_dim, state_dim, dtype, tile,
+                group)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x, dt, a_log, b, c) -> None:
@@ -58,17 +144,49 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
-def launch(x, dt, a_log, b, c, y, state, *, stream) -> int:
-    """Launch the kernel on `stream` for checked tensors (`state` may be
-    None); returns the CUDA error code (0: accepted)."""
-    bsz, l, h, p = x.shape
+def vector_loads(*tensors) -> bool:
+    """Whether every tensor's start and every stride but the last allow
+    16-byte loads of its rows."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(
+                s * size % 16 for s in t.stride()[:-1]):
+            return False
+    return True
+
+
+def scratch(p: Plan, device) -> torch.Tensor:
+    """The scratch of one call, one allocation, uninitialised (every
+    element is written before it is read)."""
+    return torch.empty(max(p.scratch_bytes, 1), dtype=torch.uint8,
+                       device=device)
+
+
+def scratch_views(p: Plan, raw: torch.Tensor) -> dict:
+    """name -> the part of the scratch `raw` of `p` as a tensor of its
+    shape and dtype (for inspection)."""
+    shapes = p.scratch_shapes()
+    return {name: raw[off:off + n].view(shapes[name][1])
+            .view(shapes[name][0])
+            for name, (off, n) in p.scratch_layout.items()}
+
+
+def launch(x, dt, a_log, b, c, y, state, p: Plan, raw, *, stream) -> int:
+    """Launch the kernel's phases on `stream` for checked tensors (`state`
+    may be None) with the scratch allocation `raw` of `p` (`scratch`);
+    returns the CUDA error code (0: every launch accepted)."""
+    base = raw.data_ptr()
+    layout = p.scratch_layout
     strides = (ctypes.c_int64 * 13)(
         *x.stride()[:3], *dt.stride(), *b.stride()[:2], *c.stride()[:2],
         *y.stride()[:3])
     return KERNEL.function()(
         x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
         c.data_ptr(), y.data_ptr(), 0 if state is None else state.data_ptr(),
-        strides, bsz, l, h, p, b.shape[-1], DTYPES[x.dtype], stream)
+        base + layout["states"][0], base + layout["s_last"][0],
+        base + layout["s_in"][0], strides, p.batch, p.length, p.heads,
+        p.head_dim, p.state_dim, DTYPES[x.dtype], p.tile, p.group,
+        int(vector_loads(x, b, c)), stream)
 
 
 def ssd(x, dt, a_log, b, c, *, chunk=256, use_kernel=True,
@@ -79,9 +197,10 @@ def ssd(x, dt, a_log, b, c, *, chunk=256, use_kernel=True,
     float32.
 
     `chunk` is the Pallas kernel's chunk length, kept for the reference's
-    signature: the CUDA kernel tiles the sequence in chunks of 64 steps
-    whatever it is (the chunked algebra is exact for any chunk length),
-    and the plain version has no chunks.
+    signature: the CUDA kernel tiles the sequence in chunks of its own
+    (`TILES`: 128 steps in bfloat16, 64 in float32) whatever it is (the
+    chunked algebra is exact for any chunk length), and the plain version
+    has no chunks.
     """
     _check(x, dt, a_log, b, c)
     if chunk < 1:
@@ -107,7 +226,10 @@ def ssd(x, dt, a_log, b, c, *, chunk=256, use_kernel=True,
     state = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_state else None)
     with torch.cuda.device(x.device):
-        err = launch(x, dt, a_log, b, c, y, state,
+        pl = plan(bsz, l, h, p, n, x.dtype,
+                  _sms(torch.cuda.current_device()))
+        err = launch(x, dt, a_log, b, c, y, state, pl,
+                     scratch(pl, x.device),
                      stream=torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

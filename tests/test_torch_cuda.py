@@ -23,7 +23,7 @@ from repro_torch.kernels.aging_update.ref import aging_update_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_phases, ssd_scan_ref
 from repro_torch.models import Model, mamba2
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.sim import ExperimentConfig, run_experiment
@@ -56,6 +56,46 @@ def test_aging_kernel_matches_plain_version(cuda_device, n):
     assert ops.KERNEL.launches == before + 1
     ref = aging_update_ref(*args, DEFAULT_PARAMS)
     torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-9)
+
+
+def _aging_args(device, n, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (rng.uniform(0, 0.05, n),
+                      rng.choice([48.0, 51.08, 54.0], n),
+                      rng.choice([0.0, 1.0], n),
+                      rng.uniform(0, 1e5, n))]
+
+
+@pytest.mark.parametrize("n", [3, 5, 4099, 1_280_003])
+def test_aging_kernel_ragged_sizes(cuda_device, n):
+    """Sizes with a ragged tail: of the one-element path (3 to 4,099) and
+    of the four-wide path (1,280,003 = 4 x 320,000 + 3)."""
+    args = _aging_args(cuda_device, n, n)
+    out = ops.advance_fleet(*args, DEFAULT_PARAMS)
+    ref = aging_update_ref(*args, DEFAULT_PARAMS)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("n", [8000, 1_280_000])
+def test_aging_kernel_on_offset_views(cuda_device, n):
+    """Views one element into their storage, as flat views of the fleet
+    state may be: no 16-byte alignment, so the one-element path."""
+    args = [a[1:] for a in _aging_args(cuda_device, n + 1, 7)]
+    assert all(a.data_ptr() % 16 for a in args)
+    before = ops.KERNEL.launches
+    out = ops.advance_fleet(*args, DEFAULT_PARAMS)
+    assert ops.KERNEL.launches == before + 1
+    ref = aging_update_ref(*args, DEFAULT_PARAMS)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-9)
+
+
+def test_aging_empty_launch_is_not_counted(cuda_device):
+    before = ops.KERNEL.launches
+    for n in (1, 8000, 1_280_000):
+        ops.empty_launch(n)
+    torch.cuda.synchronize()
+    assert ops.KERNEL.launches == before
 
 
 def test_aging_kernel_rejects_mixed_devices(cuda_device):
@@ -415,3 +455,171 @@ def test_mamba2_engine_on_cuda_matches_cpu(cuda_device):
         outputs.append([r.output for r in reqs])
     assert ssd_ops.KERNEL.launches == cfg.num_layers * len(prompts)
     assert outputs[0] == outputs[1]
+
+
+def _packed(device, dtype, seed, b, l, h, p, n, offset=0):
+    """x, b and c as slices of one packed (B, L, H P + 2 N) tensor, as the
+    model passes them, starting `offset` elements into it."""
+    rng = np.random.default_rng(seed)
+    width = h * p + 2 * n
+    xbc = torch.tensor(rng.standard_normal((b, l, width + offset)),
+                       dtype=torch.float32, device=device).to(dtype)
+    xbc = xbc[..., offset:]
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(torch.tensor(
+        rng.standard_normal((b, l, h)), dtype=torch.float32, device=device))
+    a_log = torch.tensor(rng.standard_normal(h) * 0.5, dtype=torch.float32,
+                         device=device)
+    return x, dt, a_log, bb, cc
+
+
+def _ssd_hold(args, dtype, y, state=None):
+    y_ref, state_ref = ssd_scan_ref(*args, return_state=True)
+    rt = 4e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=rt,
+                               atol=rt * 5)
+    if state is not None:
+        torch.testing.assert_close(state, state_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 891])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_ragged_lengths(cuda_device, l, dtype):
+    """Lengths below, at and past a tile of either instance, and the
+    longest prompt of the serve cell."""
+    args = _ssd_inputs(cuda_device, dtype, l, 1, l, 3, 64, 128)
+    y, state = ssd_ops.ssd(*args, return_state=True)
+    _ssd_hold(args, dtype, y, state)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_packed_slices(cuda_device, offset, dtype):
+    """Batch 2, x, b and c strided slices of one packed tensor: read in
+    place (16-byte copies), or element by element when the slices start
+    one element in."""
+    args = _packed(cuda_device, dtype, 5, 2, 300, 4, 64, 128, offset)
+    assert ssd_ops.vector_loads(*args[:1], *args[3:]) == (offset == 0)
+    y, state = ssd_ops.ssd(*args, return_state=True)
+    again = ssd_ops.ssd(*(t.contiguous() for t in args), return_state=True)
+    _ssd_hold(args, dtype, y, state)
+    torch.testing.assert_close(y, again[0], rtol=0, atol=0)
+    torch.testing.assert_close(state, again[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("p", ssd_ops.HEAD_DIMS)
+@pytest.mark.parametrize("n", ssd_ops.STATE_DIMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_every_instance(cuda_device, p, n, dtype):
+    """Every (P, N) the kernel takes, with and without the final state."""
+    args = _ssd_inputs(cuda_device, dtype, p + n, 2, 200, 3, p, n)
+    y, state = ssd_ops.ssd(*args, return_state=True)
+    y_only = ssd_ops.ssd(*args)
+    _ssd_hold(args, dtype, y, state)
+    torch.testing.assert_close(y_only, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_scratch_matches_rehearsal(cuda_device, dtype):
+    """The scratch of each phase against `ssd_phases` on the same inputs:
+    the chunk states and their s_Q (phase A), the states entering each
+    chunk (phase B, rounded to bf16 in the bfloat16 instance)."""
+    args = _ssd_inputs(cuda_device, dtype, 21, 2, 300, 3, 64, 128)
+    x, dt, a_log, bb, cc = args
+    pl = ssd_ops.plan(2, 300, 3, 64, 128, dtype)
+    raw = ssd_ops.scratch(pl, cuda_device)
+    work = ssd_ops.scratch_views(pl, raw)
+    y = torch.empty_like(x)
+    state = torch.empty((2, 3, 64, 128), device=cuda_device)
+    err = ssd_ops.launch(*args, y, state, pl, raw,
+                         stream=torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    _, _, ref = ssd_phases(*(t.cpu() for t in args), tile=pl.tile,
+                           bf16_products=dtype == torch.bfloat16)
+    torch.testing.assert_close(work["s_last"].cpu(), ref["s_last"],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(work["states"].cpu(), ref["states"],
+                               rtol=1e-4, atol=1e-4)
+    s_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(work["s_in"].cpu().float(), ref["s_in"],
+                               rtol=s_tol, atol=s_tol)
+
+
+def test_ssd_kernel_replays_in_a_cuda_graph(cuda_device):
+    """One ssd() call captured in a CUDA graph and replayed three times on
+    new inputs: its scratch, allocated in the capture, is reused right
+    each time."""
+    args = _ssd_inputs(cuda_device, torch.bfloat16, 4, 1, 891, 80, 64, 128)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up: build, set smem limits
+        ssd_ops.ssd(*args, return_state=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ssd_ops.KERNEL.launches
+    with torch.cuda.graph(graph):
+        y, state = ssd_ops.ssd(*args, return_state=True)
+    assert ssd_ops.KERNEL.launches == before + 1
+    for seed in (5, 6, 7):
+        fresh = _ssd_inputs(cuda_device, torch.bfloat16, seed, 1, 891, 80,
+                            64, 128)
+        for dst, src in zip(args, fresh):
+            dst.copy_(src)
+        graph.replay()
+        y_chk, h_chk = mamba2.ssd_chunked(*args, chunk=256)
+        torch.testing.assert_close(y.float(), y_chk.float(), rtol=4e-2,
+                                   atol=2e-1)
+        torch.testing.assert_close(state, h_chk, rtol=1e-3, atol=1e-3)
+
+
+_PHASES_CHILD = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.ssd_scan import ops
+g = torch.Generator(device="cuda").manual_seed(8)
+def draw(*shape):
+    return torch.randn(shape, generator=g, device="cuda")
+x, b, c = draw(1, 1024, 80, 64).bfloat16(), draw(1, 1024, 128).bfloat16(), \\
+    draw(1, 1024, 128).bfloat16()
+dt = torch.nn.functional.softplus(draw(1, 1024, 80))
+a_log = draw(80) * 0.5
+ops.ssd(x, dt, a_log, b, c, return_state=True)          # warm-up
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.ones(1, device="cuda").add_(1)
+    for _ in range(3):
+        ops.ssd(x, dt, a_log, b, c, return_state=True)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def test_ssd_kernel_counts_one_launch_per_call(cuda_device):
+    """Each ssd() call counts once in KERNEL.launches; the profiler sees
+    its three phases on the device, once each (`Plan.device_launches`).
+    The profiler runs in a child process, since a second profiling
+    session in one process may record no device events, and an unrelated
+    kernel opens its window, whose first kernel it may miss."""
+    import json
+    import os
+    import subprocess
+    import sys
+    args = _ssd_inputs(cuda_device, torch.bfloat16, 8, 1, 1024, 80, 64, 128)
+    before = ssd_ops.KERNEL.launches
+    for _ in range(3):
+        ssd_ops.ssd(*args, return_state=True)
+    assert ssd_ops.KERNEL.launches == before + 3
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    child = subprocess.run([sys.executable, "-c", _PHASES_CHILD], env=env,
+                           capture_output=True, text=True, timeout=300)
+    assert child.returncode == 0, child.stderr[-2000:]
+    kernels = json.loads(child.stdout.strip().splitlines()[-1])
+    phases = ("chunk_state", "state_pass", "chunk_scan")
+    counts = {k: sum(k in n for n in kernels) for k in phases}
+    pl = ssd_ops.plan(1, 1024, 80, 64, 128, torch.bfloat16)
+    assert pl.device_launches == len(phases) == 3
+    assert counts == {k: 3 for k in phases}, kernels

@@ -28,6 +28,7 @@ from repro.models import mamba2 as ref_mamba2
 from repro.models import Model as RefModel
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan.ref import ssd_phases as ref_phases
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models import mamba2
 
@@ -253,3 +254,143 @@ class TestSSDScan:
         with pytest.raises(ValueError, match="no kernel for device meta"):
             ops.ssd(*meta)
         assert ops.KERNEL.launches == before
+
+
+class TestKernelDecomposition:
+    """`ref.ssd_phases`, the CUDA kernel's three phases in plain PyTorch at
+    the kernel's tile (`ops.TILES`), with the bfloat16 instance's rounding
+    of the products' operands when the inputs are bfloat16: held against
+    the recurrence, the reference's chunked scan and its Pallas kernel in
+    interpret mode at `TestSSDScanKernel`'s tolerances."""
+
+    @pytest.mark.parametrize("b,l,h,p,n,chunk", KERNEL_SHAPES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_reference(self, b, l, h, p, n, chunk, dtype):
+        mine, theirs = _inputs(l, b, l, h, p, n, dtype)
+        tdt = DTYPES[dtype][0]
+        y, state, _ = ref_phases(*mine, tile=ops.TILES[tdt],
+                                 bf16_products=tdt == torch.bfloat16)
+        assert y.dtype == tdt and state.shape == (b, h, p, n)
+        pallas = ref_ops.ssd(*theirs, chunk=chunk, interpret=True)
+        chunked, h_chunked = ref_mamba2.ssd_chunked(*theirs, chunk=chunk)
+        rt = 4e-2 if dtype == "bfloat16" else 1e-4
+        for ref in (pallas, chunked, ref_ssd_scan_ref(*theirs)):
+            _close(y, ref, rt, rt * 5)
+        _close(state, h_chunked, 1e-3, 1e-3)
+
+    @pytest.mark.parametrize("l", [1, 63, 64, 65, 129, 142])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_ragged_lengths(self, l, dtype):
+        """Lengths that are no multiple of a tile: the steps past the
+        length act as dt = 0."""
+        mine, _ = _inputs(l + 1, 1, l, 2, 32, 64, dtype)
+        tdt = DTYPES[dtype][0]
+        y, state, _ = ref_phases(*mine, tile=ops.TILES[tdt],
+                                 bf16_products=tdt == torch.bfloat16)
+        y_ref, state_ref = ssd_scan_ref(*mine, return_state=True)
+        rt = 4e-2 if dtype == "bfloat16" else 1e-4
+        _close(y, y_ref, rt, rt * 5)
+        _close(state, state_ref, 1e-3, 1e-3)
+
+    def test_scratch(self):
+        """The scratch the kernel writes: S_in[0] = 0; S_in[c + 1] =
+        exp(s_last[c]) S_in[c] + S_c[c]; the final state continues it."""
+        mine, _ = _inputs(13, 2, 150, 3, 32, 32)
+        _, state, work = ref_phases(*mine, tile=64)
+        states, s_last, s_in = work["states"], work["s_last"], work["s_in"]
+        assert states.shape == s_in.shape == (2, 3, 3, 32, 32)
+        assert s_last.shape == (2, 3, 3)
+        assert not s_in[:, :, 0].any()
+        run = s_in[:, :, -1]
+        nxt = torch.exp(s_last)[..., None, None] * s_in + states
+        _close(s_in[:, :, 1:], nxt[:, :, :-1], 1e-6, 1e-6)
+        _close(state, nxt[:, :, -1], 1e-6, 1e-6)
+        assert run.shape == (2, 3, 32, 32)
+
+    def test_hi_lo_split_keeps_the_state(self):
+        """x o w is no bf16 value: rounded once, the chunk states move by
+        some 2^-9 of their size; as bf16 hi + lo they stay near float32,
+        and the final state well inside its 1e-3 tolerance."""
+        mine, _ = _inputs(14, 1, 128, 2, 64, 128, "bfloat16")
+        x, dt, a_log, b, c = mine
+        _, state_ref = ssd_scan_ref(*mine, return_state=True)
+        _, state, work = ref_phases(*mine, tile=128, bf16_products=True)
+        assert float((state - state_ref).abs().max()) < 1e-4
+        s = torch.cumsum(dt * -torch.exp(a_log), dim=1)       # one chunk
+        xw = x.float() * (torch.exp(s[:, -1:] - s) * dt)[..., None]
+        once = torch.einsum("bqhp,bqn->bhpn",
+                            xw.bfloat16().float(), b.float())
+        exact = torch.einsum("bqhp,bqn->bhpn", xw, b.float())
+        split = work["states"][:, :, 0]
+        err_split = float((split - exact).abs().max())
+        err_once = float((once - exact).abs().max())
+        assert err_split < 1e-4 < 1e-3 < err_once
+
+# L -> (chunks, head group) of Mamba2-2.7B's shape (80 heads, P 64, N 128,
+# one row) on 132 SMs, bfloat16 (tile 128) and float32 (tile 64)
+PLANS = {1: ((1, 1), (1, 1)), 63: ((1, 1), (1, 1)), 64: ((1, 1), (1, 1)),
+         65: ((1, 1), (2, 2)), 142: ((2, 2), (3, 2)),
+         891: ((7, 5), (14, 8)), 1024: ((8, 5), (16, 8))}
+
+
+class TestPlan:
+    """The wrapper's planning, on the CPU: tile, chunks, head group, grids
+    and scratch."""
+
+    @pytest.mark.parametrize("l", sorted(PLANS))
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_serve_shape(self, l, dtype):
+        tdt = DTYPES[dtype][0]
+        pl = ops.plan(1, l, 80, 64, 128, tdt, sms=132)
+        chunks, group = PLANS[l][dtype == "float32"]
+        assert pl.tile == (128 if dtype == "bfloat16" else 64)
+        assert (pl.chunks, pl.group) == (chunks, group)
+        assert pl.grid == (chunks, -(-80 // group), 1)
+        assert pl.device_launches == 3
+        # one wave of one CTA per SM, filling at least half of the SMs
+        ctas = pl.grid[0] * pl.grid[1]
+        assert 66 <= ctas and (ctas <= 132 or group == ops.MAX_GROUP)
+        shapes = pl.scratch_shapes()
+        assert shapes["states"] == ((1, 80, chunks, 64, 128), torch.float32)
+        assert shapes["s_in"] == ((1, 80, chunks, 64, 128), tdt)
+        assert shapes["s_last"] == ((1, 80, chunks), torch.float32)
+        # one allocation, each part on a 256-byte boundary
+        per_chunk = 80 * 64 * 128 * (4 + tdt.itemsize) + 80 * 4
+        raw = ops.scratch(pl, "cpu")
+        parts = ops.scratch_views(pl, raw)
+        assert sum(n for _, n in pl.scratch_layout.values()) == \
+            chunks * per_chunk
+        assert raw.numel() == pl.scratch_bytes < chunks * per_chunk + 512
+        for name, (offset, n) in pl.scratch_layout.items():
+            assert offset % 256 == 0
+            assert parts[name].shape == shapes[name][0]
+            assert parts[name].data_ptr() - raw.data_ptr() == offset
+
+    def test_serve_scratch_fits_in_l2(self):
+        """At 1,024 tokens the float32 chunk states of the bfloat16
+        instance take 21 MB, well inside the H100's 50 MB L2."""
+        pl = ops.plan(1, 1024, 80, 64, 128, torch.bfloat16)
+        shape, dtype = pl.scratch_shapes()["states"]
+        assert int(np.prod(shape)) * dtype.itemsize == 20_971_520
+
+    @pytest.mark.parametrize("p,n", [(p, n) for p in ops.HEAD_DIMS
+                                     for n in ops.STATE_DIMS])
+    def test_groups(self, p, n):
+        pl = ops.plan(2, 4096, 80, p, n, torch.bfloat16, sms=114)
+        assert pl.group == ops.MAX_GROUP        # 32 x 80 x 2 units
+        short = ops.plan(1, 5, 3, p, n, torch.float32)
+        assert (short.chunks, short.group, short.grid) == (1, 1, (1, 3, 1))
+        empty = ops.plan(1, 0, 3, p, n, torch.float32)
+        assert empty.chunks == 0 and empty.device_launches == 0
+
+    def test_vector_loads(self):
+        """16-byte loads only where the start and the row strides allow
+        them: the model's packed xBC slices do, a slice one element in
+        does not."""
+        xbc = torch.zeros((2, 10, 5376), dtype=torch.bfloat16)
+        x = xbc[..., :5120].reshape(2, 10, 80, 64)
+        b, c = xbc[..., 5120:5248], xbc[..., 5248:]
+        assert ops.vector_loads(x, b, c)
+        assert not ops.vector_loads(xbc[..., 1:129])
+        odd = torch.zeros((2, 10, 5377), dtype=torch.bfloat16)[..., :128]
+        assert not ops.vector_loads(odd)
