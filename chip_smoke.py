@@ -19,7 +19,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    back-to-back eager calls from Python (`wrapper_ms`,
    `plain_eager_ms`), which the host's speed sets. Beside the kernel's
    time stands the floor of a launch of the same geometry: an empty
-   kernel, timed the same way (`launch_floor_ms`).
+   kernel (`benchmarks_torch/launch_floor.cu`), timed the same way
+   (`launch_floor_ms`).
 2b. The two attention kernels against their plain versions, on the
    shapes of the reference's `TestFlashAttentionKernel` and
    `TestDecodeAttentionKernel` (float32 and bfloat16, its sliding windows
@@ -73,6 +74,7 @@ no result and exits 1.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import platform
@@ -147,6 +149,10 @@ SSD_CASES = ([(b, l, h, p, n, chunk, dt)
 SSD_MAIN = (1, 1024, 80, 64, 128, 256, "bfloat16")
 # the final state, as tests/test_models.py::TestSSD holds h
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+# the tile at which the SSD scan's operations are counted for its bound:
+# the smallest the kernel takes (its float32 instance's), fixed so that
+# the bound does not follow the tile the kernel picks
+SSD_TILE = 64
 
 
 def ssd_tol(dtype: str) -> dict:
@@ -273,11 +279,22 @@ def phase_environment(torch, kernels) -> None:
                 log(f"[build] {kernel.name}: {line.strip()}")
 
 
-def phase_aging_kernel(torch, np, params):
-    """advance_fleet (kernel) vs aging_update_ref (plain) on the card."""
-    from repro_torch.kernels.aging_update.ops import advance_fleet, empty_launch
+def phase_aging_kernel(torch, np, params, floor):
+    """advance_fleet (kernel) vs aging_update_ref (plain) on the card;
+    `floor`: the `CudaKernel` of an empty launch, timed beside it."""
+    from repro_torch.kernels.aging_update.ops import advance_fleet
     from repro_torch.kernels.aging_update.ref import aging_update_ref
     dev = torch.device("cuda")
+    empty = floor.function()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def empty_launch(n):
+        # the geometry aging_update.cu gives n elements: blocks of 256,
+        # at most 16 a SM
+        err = empty(min(-(-n // 256), 16 * sms), 256,
+                    torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty launch failed: CUDA error {err}")
     row = {}
     for n in KERNEL_NS:
         rng = np.random.default_rng(n)
@@ -459,17 +476,17 @@ def _ssd_inputs(torch, np, case):
     return x, dt, a_log, bb, cc
 
 
-def _ssd_work(case, tile):
+def _ssd_work(case):
     """(bytes, operations) of one ssd_scan call: x read and y written, dt,
     a_log, b and c read and the float32 final state written, each once
     (the kernel's scratch of chunk states is not counted); the chunked
-    algebra at the kernel's tile Q (`tile`) over the L steps, with C B^T
+    algebra at the fixed tile Q = `SSD_TILE` over the L steps, with C B^T
     formed once for all heads: 2 L (Q N + H (Q P + 2 P N))."""
     b, l, h, p, n, _, dtype = case
     size = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * l * h * p * size + b * l * h * 4 + h * 4
               + 2 * b * l * n * size + b * h * p * n * 4)
-    q = tile
+    q = SSD_TILE
     return nbytes, 2 * b * l * (q * n + h * (q * p + 2 * p * n))
 
 
@@ -508,7 +525,7 @@ def phase_ssd_kernel(torch, np):
                                  f"{state_err:.3e}")
         pl = plan(b, l, h, p, n, getattr(torch, dtype),
                   torch.cuda.get_device_properties(0).multi_processor_count)
-        nbytes, ops = _ssd_work(case, pl.tile)
+        nbytes, ops = _ssd_work(case)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / _peak(dtype) * 1e3
         row = {"ms": graph_ms(kernel), "plain_ms": graph_ms(chunked),
@@ -810,14 +827,20 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core.aging import DEFAULT_PARAMS
+    from repro_torch.kernels._build import CudaKernel
     from repro_torch.kernels.aging_update.ops import KERNEL as AGING
     from repro_torch.kernels.decode_attention.ops import KERNEL as DECODE
     from repro_torch.kernels.flash_attention.ops import KERNEL as FLASH
     from repro_torch.kernels.ssd_scan.ops import KERNEL as SSD
 
+    # an empty kernel, for the launch floor beside the aging kernel's time
+    floor = CudaKernel("launch_floor",
+                       src.parent / "benchmarks_torch" / "launch_floor.cu",
+                       "empty_launch",
+                       [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p])
     every = (AGING, FLASH, DECODE, SSD)
-    phase_environment(torch, every)
-    aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS)
+    phase_environment(torch, (*every, floor))
+    aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS, floor)
     attention_rows = phase_attention_kernels(torch, np)
     ssd_row = phase_ssd_kernel(torch, np)
     launches = phase_fleet(torch, (AGING,))

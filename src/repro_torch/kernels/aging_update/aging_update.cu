@@ -19,18 +19,19 @@
 // is a chain of dependent transcendental latencies behind the launch.
 // Design: the math is skipped where its result is known exactly (a core
 // not advanced keeps dVth; a stress of 1 raised to n is 1), so the work
-// follows the data. A small fleet goes one element a thread in blocks of
-// 256: blocks of 64 spread over every SM measured slower at 8,000 (more
-// blocks to launch, and each element's chain of exp and pow is as long).
-// A fleet of at least 1,024 elements per SM (the SM count is queried once
-// per device) goes four elements a thread with 16-byte loads and stores
-// when the five arrays are 16-byte aligned (the wrapper's output always
-// is, so a view offset into the inputs takes the one-element path), with a
-// scalar tail. Grid-stride loops with masked tails, so the wrapper neither
-// pads nor copies. Float32 throughout, in the reference's order of
-// operations; precise expf/powf (no fast math) and no fused multiply-add,
-// so the result tracks the plain PyTorch version to a few ulps.
+// follows the data. One element a thread in blocks of 256, at most 16
+// blocks per SM (the SM count is queried once per device), grid-stride
+// with a masked tail, so the wrapper neither pads nor copies and a view
+// offset into its storage is read as it is. Blocks of 64 spread over every
+// SM measured slower at 8,000 elements (more blocks to launch, and each
+// element's chain of exp and pow is as long); four elements a thread by
+// 16-byte loads measured no faster at 1.28M than this, once the math was
+// skipped. Float32 throughout, in the reference's order of operations;
+// precise expf/powf (no fast math) and no fused multiply-add, so the
+// result tracks the plain PyTorch version to a few ulps.
+#include <algorithm>
 #include <cstdint>
+#include <vector>
 
 #include <cuda_runtime.h>
 
@@ -56,7 +57,7 @@ __device__ __forceinline__ float advance(float d, float temp_c, float y,
 }
 
 // Elements [0, n), one a thread, grid-stride.
-__global__ void aging_update_scalar(const float* __restrict__ dvth,
+__global__ void aging_update_kernel(const float* __restrict__ dvth,
                                     const float* __restrict__ temp_c,
                                     const float* __restrict__ stress,
                                     const float* __restrict__ tau,
@@ -69,82 +70,40 @@ __global__ void aging_update_scalar(const float* __restrict__ dvth,
     out[i] = advance(dvth[i], temp_c[i], stress[i], tau[i], p);
 }
 
-// Elements [0, 4 n4) four a thread by float4 (every pointer 16-byte
-// aligned), grid-stride, and the n % 4 after them one a thread.
-__global__ void aging_update_vec4(const float* __restrict__ dvth,
-                                  const float* __restrict__ temp_c,
-                                  const float* __restrict__ stress,
-                                  const float* __restrict__ tau,
-                                  float* __restrict__ out, int64_t n,
-                                  Params p) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t n4 = n / 4;
-  const float4* d4 = reinterpret_cast<const float4*>(dvth);
-  const float4* t4 = reinterpret_cast<const float4*>(temp_c);
-  const float4* s4 = reinterpret_cast<const float4*>(stress);
-  const float4* u4 = reinterpret_cast<const float4*>(tau);
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (int64_t v = first; v < n4; v += stride) {
-    const float4 d = d4[v], t = t4[v], s = s4[v], u = u4[v];
-    o4[v] = make_float4(advance(d.x, t.x, s.x, u.x, p),
-                        advance(d.y, t.y, s.y, u.y, p),
-                        advance(d.z, t.z, s.z, u.z, p),
-                        advance(d.w, t.w, s.w, u.w, p));
-  }
-  const int64_t last = 4 * n4 + first;
-  if (last < n)
-    out[last] = advance(dvth[last], temp_c[last], stress[last], tau[last],
-                        p);
-}
-
-__global__ void empty_kernel() {}
-
-// The current device's SM count, queried once per device.
-int sm_count() {
-  constexpr int kDevices = 64;
-  static int counts[kDevices] = {};
+// The current device's SM count into `sms`, queried once per device.
+cudaError_t sm_count(int* sms) {
+  struct Counts {
+    cudaError_t err = cudaSuccess;
+    std::vector<int> sms;
+  };
+  static const Counts counts = [] {
+    Counts c;
+    int devices = 0;
+    c.err = cudaGetDeviceCount(&devices);
+    for (int d = 0; c.err == cudaSuccess && d < devices; ++d) {
+      int n = 0;
+      c.err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+      c.sms.push_back(n);
+    }
+    return c;
+  }();
+  if (counts.err != cudaSuccess) return counts.err;
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  if (dev < 0 || dev >= kDevices) dev = 0;
-  if (counts[dev] == 0) {
-    int sms = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        sms <= 0)
-      return 132;
-    counts[dev] = sms;
-  }
-  return counts[dev];
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= static_cast<int>(counts.sms.size()) ||
+      counts.sms[dev] <= 0)
+    return cudaErrorInvalidDevice;
+  *sms = counts.sms[dev];
+  return cudaSuccess;
 }
 
 constexpr int kThreads = 256;   // threads a block
-constexpr int kPerSm = 8;       // resident blocks per SM of the four-wide path
-
-struct Grid {
-  unsigned blocks;
-  bool vec;  // four elements a thread
-};
-
-// The launch geometry of n elements whose arrays are all 16-byte aligned
-// (`aligned`) or not.
-Grid grid_for(int64_t n, bool aligned) {
-  const int64_t sms = sm_count();
-  if (aligned && n >= 4 * kThreads * sms) {
-    int64_t blocks = (n / 4 + kThreads - 1) / kThreads;
-    if (blocks > kPerSm * sms) blocks = kPerSm * sms;
-    return {static_cast<unsigned>(blocks), true};
-  }
-  // one element a thread
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 16 * sms) blocks = 16 * sms;
-  return {static_cast<unsigned>(blocks), false};
-}
+constexpr int kPerSm = 16;      // blocks per SM at most; the rest by stride
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError(): 0 when the launch
+// Launches on `stream` and returns a CUDA error code: 0 when the launch
 // was accepted. The caller checks shapes, types and devices.
 extern "C" int aging_update_launch(const float* dvth, const float* temp_c,
                                    const float* stress, const float* tau,
@@ -152,28 +111,14 @@ extern "C" int aging_update_launch(const float* dvth, const float* temp_c,
                                    float inv_n, float k_fit, float neg_e0,
                                    float kb, float c_vdd, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks =
+      std::min<int64_t>((n + kThreads - 1) / kThreads, kPerSm * sms);
   const Params p{n_exp, inv_n, k_fit, neg_e0, kb, c_vdd};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* const arrays[] = {dvth, temp_c, stress, tau, out};
-  bool aligned = true;
-  for (const void* q : arrays)
-    aligned = aligned && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const Grid g = grid_for(n, aligned);
-  if (g.vec) {
-    aging_update_vec4<<<g.blocks, kThreads, 0, s>>>(dvth, temp_c, stress,
-                                                     tau, out, n, p);
-  } else {
-    aging_update_scalar<<<g.blocks, kThreads, 0, s>>>(dvth, temp_c, stress,
-                                                       tau, out, n, p);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// An empty kernel launched with the geometry aging_update_launch gives n
-// aligned elements: the floor of a launch of that shape, for timing only.
-extern "C" int aging_update_empty_launch(int64_t n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const Grid g = grid_for(n, true);
-  empty_kernel<<<g.blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  aging_update_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      dvth, temp_c, stress, tau, out, n, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,6 @@ layout raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 
 import torch
@@ -77,21 +76,3 @@ def advance_fleet(dvth, temp_c, stress, tau, params):
     KERNEL.launches += 1
     return out
 
-
-@functools.cache
-def _empty_entry():
-    KERNEL.function()                           # builds the library
-    fn = ctypes.CDLL(str(KERNEL.library_path())).aging_update_empty_launch
-    fn.argtypes = [ctypes.c_int64, _P]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def empty_launch(n: int) -> None:
-    """Launch an empty kernel with the geometry `advance_fleet` gives n
-    aligned elements, on the current stream of the current device: the
-    floor of such a launch, for timing beside the kernel. It is not the
-    kernel and does not count in `KERNEL.launches`."""
-    err = _empty_entry()(n, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"empty launch failed: CUDA error {err}")

@@ -12,14 +12,17 @@ place); only a last axis of stride other than 1 is copied.
 One call makes three launches on the device (chunk states, state
 passing, chunk scan; `Plan.device_launches`) and counts once in
 `KERNEL.launches`. `plan` sizes them: the chunk tile of the dtype's
-instance, the heads each CTA takes, the grids and the scratch the wrapper
-allocates for the chunk states.
+instance, the heads each CTA takes, the grids, and the one allocation
+that holds y and the scratch of chunk states. The C entry point takes its
+arguments packed in one buffer: the pointers of the call, then the
+strides and sizes, packed once per plan and layout (`_layout_args`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import struct
 from pathlib import Path
 
 import torch
@@ -27,11 +30,14 @@ import torch
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
 KERNEL = CudaKernel(
     "ssd_scan", Path(__file__).with_name("ssd_scan.cu"), "ssd_scan_launch",
-    [_P] * 10 + [ctypes.POINTER(ctypes.c_int64)] + [_I] * 9 + [_P])
+    [ctypes.c_char_p, ctypes.c_void_p])
+#: `Args` of ssd_scan.cu: ten pointers (x, dt, a_log, b, c, y, state,
+#: states, s_last, s_in), `vec` and four bytes of padding; then 13 int64
+#: strides and eight int32 (batch, len, heads, P, N, dtype, tile, group)
+_POINTERS = struct.Struct("=10Qi4x")
+_LAYOUT = struct.Struct("=13q8i")
 
 HEAD_DIMS = (32, 64)           # P
 STATE_DIMS = (32, 64, 128)     # N
@@ -39,7 +45,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: steps per chunk tile of each instance (`kQf`, `kQtc` in ssd_scan.cu)
 TILES = {torch.float32: 64, torch.bfloat16: 128}
 MAX_GROUP = 8                  # heads per CTA of phases A and C (`kMaxGroup`)
-H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +83,13 @@ class Plan:
 
     @functools.cached_property
     def scratch_layout(self) -> dict:
-        """name -> (byte offset, bytes) of each part of the scratch in one
-        allocation, each starting on a 256-byte boundary."""
+        """name -> (byte offset, bytes) of y and of each part of the
+        scratch in the one allocation of a call (`buffer`), each starting
+        on a 256-byte boundary, y first."""
+        parts = {"y": ((self.batch, self.length, self.heads,
+                        self.head_dim), self.dtype), **self.scratch_shapes()}
         layout, offset = {}, 0
-        for name, (shape, dtype) in self.scratch_shapes().items():
+        for name, (shape, dtype) in parts.items():
             n = dtype.itemsize
             for d in shape:
                 n *= d
@@ -89,16 +97,16 @@ class Plan:
             offset += -(-n // 256) * 256
         return layout
 
-    @property
+    @functools.cached_property
     def scratch_bytes(self) -> int:
-        """Bytes of the one allocation that holds the scratch."""
-        return max((off + n for off, n in self.scratch_layout.values()),
-                   default=0)
+        """Bytes of the one allocation of a call, y included (a multiple
+        of the dtype's size: the allocation ends with S_in)."""
+        return max(off + n for off, n in self.scratch_layout.values())
 
 
 @functools.lru_cache(maxsize=256)
 def plan(batch: int, length: int, heads: int, head_dim: int,
-         state_dim: int, dtype: torch.dtype, sms: int = H100_SMS) -> Plan:
+         state_dim: int, dtype: torch.dtype, sms: int) -> Plan:
     """The tile is the instance's. Phases A and C run one CTA per SM (the
     chunk scan's shared memory allows no second), each walking its group
     of heads with the next head's tiles in flight; the head group is the
@@ -144,28 +152,33 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
-def vector_loads(*tensors) -> bool:
-    """Whether every tensor's start and every stride but the last allow
-    16-byte loads of its rows."""
-    for t in tensors:
-        size = t.element_size()
-        if t.data_ptr() % 16 or any(
-                s * size % 16 for s in t.stride()[:-1]):
-            return False
-    return True
+@functools.lru_cache(maxsize=256)
+def _layout_args(p: Plan, sx, sdt, sb, sc, sy) -> tuple[bytes, bool]:
+    """The strides and sizes of a call of `p` with x, dt, b, c and y of
+    strides `sx` to `sy`, packed as the kernel takes them, and whether
+    every stride of x, b and c but the last allows 16-byte loads of their
+    rows (the kernel loads by 16 bytes where their starts do too)."""
+    size = p.dtype.itemsize
+    rows = not any(s * size % 16 for st in (sx, sb, sc) for s in st[:-1])
+    return _LAYOUT.pack(*sx[:3], *sdt, *sb[:2], *sc[:2], *sy[:3], p.batch,
+                        p.length, p.heads, p.head_dim, p.state_dim,
+                        DTYPES[p.dtype], p.tile, p.group), rows
 
 
-def scratch(p: Plan, device) -> torch.Tensor:
-    """The scratch of one call, one allocation, uninitialised (every
-    element is written before it is read)."""
-    return torch.empty(max(p.scratch_bytes, 1), dtype=torch.uint8,
+def buffer(p: Plan, device) -> torch.Tensor:
+    """The one allocation of a call (`Plan.scratch_layout`: y, then the
+    scratch), flat in the plan's dtype, uninitialised (every element is
+    written before it is read)."""
+    return torch.empty(p.scratch_bytes // p.dtype.itemsize, dtype=p.dtype,
                        device=device)
 
 
 def scratch_views(p: Plan, raw: torch.Tensor) -> dict:
-    """name -> the part of the scratch `raw` of `p` as a tensor of its
-    shape and dtype (for inspection)."""
-    shapes = p.scratch_shapes()
+    """name -> the part of the allocation `raw` of `p` (`buffer`) as a
+    tensor of its shape and dtype (for inspection)."""
+    shapes = {"y": ((p.batch, p.length, p.heads, p.head_dim), p.dtype),
+              **p.scratch_shapes()}
+    raw = raw.view(torch.uint8)
     return {name: raw[off:off + n].view(shapes[name][1])
             .view(shapes[name][0])
             for name, (off, n) in p.scratch_layout.items()}
@@ -173,20 +186,20 @@ def scratch_views(p: Plan, raw: torch.Tensor) -> dict:
 
 def launch(x, dt, a_log, b, c, y, state, p: Plan, raw, *, stream) -> int:
     """Launch the kernel's phases on `stream` for checked tensors (`state`
-    may be None) with the scratch allocation `raw` of `p` (`scratch`);
-    returns the CUDA error code (0: every launch accepted)."""
+    may be None) with the scratch in the allocation `raw` of `p`
+    (`buffer`; y may be its first part or a tensor of its own); returns
+    the CUDA error code (0: every launch accepted)."""
+    tail, rows = _layout_args(p, x.stride(), dt.stride(), b.stride(),
+                              c.stride(), y.stride())
+    xp, bp, cp = x.data_ptr(), b.data_ptr(), c.data_ptr()
     base = raw.data_ptr()
     layout = p.scratch_layout
-    strides = (ctypes.c_int64 * 13)(
-        *x.stride()[:3], *dt.stride(), *b.stride()[:2], *c.stride()[:2],
-        *y.stride()[:3])
-    return KERNEL.function()(
-        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), 0 if state is None else state.data_ptr(),
+    head = _POINTERS.pack(
+        xp, dt.data_ptr(), a_log.data_ptr(), bp, cp, y.data_ptr(),
+        0 if state is None else state.data_ptr(),
         base + layout["states"][0], base + layout["s_last"][0],
-        base + layout["s_in"][0], strides, p.batch, p.length, p.heads,
-        p.head_dim, p.state_dim, DTYPES[x.dtype], p.tile, p.group,
-        int(vector_loads(x, b, c)), stream)
+        base + layout["s_in"][0], rows and not (xp | bp | cp) % 16)
+    return KERNEL.function()(head + tail, stream)
 
 
 def ssd(x, dt, a_log, b, c, *, chunk=256, use_kernel=True,
@@ -222,14 +235,16 @@ def ssd(x, dt, a_log, b, c, *, chunk=256, use_kernel=True,
                          f"{STATE_DIMS}, got P {p}, N {n}")
     x, b, c = _unit_last(x), _unit_last(b), _unit_last(c)
     a_log = a_log.contiguous()
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_state else None)
     with torch.cuda.device(x.device):
         pl = plan(bsz, l, h, p, n, x.dtype,
                   _sms(torch.cuda.current_device()))
-        err = launch(x, dt, a_log, b, c, y, state, pl,
-                     scratch(pl, x.device),
+        raw = buffer(pl, x.device)
+        # y is the allocation's first part; it holds the scratch alive
+        # only as long as the caller holds y
+        y = raw.as_strided(x.shape, (l * h * p, h * p, p, 1))
+        err = launch(x, dt, a_log, b, c, y, state, pl, raw,
                      stream=torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

@@ -856,53 +856,68 @@ cudaError_t launch_dims(int head_dim, int state_dim, const Problem& pr,
 
 }  // namespace
 
-// x (B, L, H, P), dt (B, L, H) float32, a_log (H,) float32 contiguous, b
-// and c (B, L, N), y (B, L, H, P); x, b, c and y of one dtype (0: float32,
-// 1: bfloat16), read and written through the 13 element strides in
-// `strides` (batch, sequence and head of x and dt, batch and sequence of b
-// and c, batch, sequence and head of y; the last axis of x, b, c and y has
-// stride 1, and the rows of y are 16-byte aligned). `state`, when not null, receives the final state (B, H, P, N)
-// float32, contiguous. `states` (B, H, chunks, P, N) float32, `s_last` (B,
-// H, chunks) float32 and `s_in` (B, H, chunks, P, N) of x's dtype are
+// The arguments of one call, packed by the wrapper in one buffer
+// (`ops.py`, `_POINTERS` then `_LAYOUT`): x (B, L, H, P), dt (B, L, H) float32, a_log (H,)
+// float32 contiguous, b and c (B, L, N), y (B, L, H, P); x, b, c and y of
+// one dtype (0: float32, 1: bfloat16), read and written through the 13
+// element strides in `strides` (batch, sequence and head of x and dt,
+// batch and sequence of b and c, batch, sequence and head of y; the last
+// axis of x, b, c and y has stride 1, and the rows of y are 16-byte
+// aligned). `state`, when not null, receives the final state (B, H, P, N)
+// float32, contiguous. `states` (B, H, chunks, P, N) float32, `s_last`
+// (B, H, chunks) float32 and `s_in` (B, H, chunks, P, N) of x's dtype are
 // contiguous scratch, 16-byte aligned, with chunks = ceil(len / tile);
 // `tile` must be the instance's (128 for bfloat16, 64 for float32). Each
 // CTA of phases A and C takes `group` heads. `vec` says that x, b and c
-// and their strides allow 16-byte loads. Makes three launches on `stream`
-// (or, for len 0, clears `state`) and returns a CUDA error code: 0 when
-// every launch was accepted. The caller checks shapes, types, devices and
-// strides.
-extern "C" int ssd_scan_launch(const void* x, const void* dt,
-                               const void* a_log, const void* b,
-                               const void* c, void* y, void* state,
-                               void* states, void* s_last, void* s_in,
-                               const int64_t* strides, int batch, int len,
-                               int n_heads, int head_dim, int state_dim,
-                               int dtype, int tile, int group, int vec,
-                               void* stream) {
-  if (dtype != 0 && dtype != 1)
+// and their strides allow 16-byte loads.
+struct Args {
+  const void* x;
+  const void* dt;
+  const void* a_log;
+  const void* b;
+  const void* c;
+  void* y;
+  void* state;
+  void* states;
+  void* s_last;
+  void* s_in;
+  int32_t vec, pad;
+  int64_t strides[13];
+  int32_t batch, len, n_heads, head_dim, state_dim, dtype, tile, group;
+};
+static_assert(sizeof(Args) == 224, "Args must match the wrapper's packing");
+
+// Makes three launches on `stream` (or, for len 0, clears `state`) and
+// returns a CUDA error code: 0 when every launch was accepted. The caller
+// checks shapes, types, devices and strides.
+extern "C" int ssd_scan_launch(const Args* a, void* stream) {
+  if (a->dtype != 0 && a->dtype != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tile != (dtype == 1 ? kQtc : kQf) || group < 1 || group > kMaxGroup)
+  if (a->tile != (a->dtype == 1 ? kQtc : kQf) || a->group < 1 ||
+      a->group > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || n_heads <= 0) return static_cast<int>(cudaSuccess);
+  if (a->batch <= 0 || a->n_heads <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (len <= 0) {
-    if (state == nullptr) return static_cast<int>(cudaSuccess);
+  if (a->len <= 0) {
+    if (a->state == nullptr) return static_cast<int>(cudaSuccess);
     return static_cast<int>(cudaMemsetAsync(
-        state, 0,
-        sizeof(float) * batch * n_heads * head_dim * state_dim, s));
+        a->state, 0,
+        sizeof(float) * a->batch * a->n_heads * a->head_dim * a->state_dim,
+        s));
   }
+  const int64_t* st = a->strides;
   const Problem pr{
-      x, static_cast<const float*>(dt), static_cast<const float*>(a_log), b,
-      c, y, static_cast<float*>(state), static_cast<float*>(states),
-      static_cast<float*>(s_last), s_in,
-      Strides{strides[0], strides[1], strides[2]},
-      Strides{strides[3], strides[4], strides[5]},
-      Strides{strides[6], strides[7], 0}, Strides{strides[8], strides[9], 0},
-      Strides{strides[10], strides[11], strides[12]}, len, n_heads,
-      (len + tile - 1) / tile, group, vec};
+      a->x, static_cast<const float*>(a->dt),
+      static_cast<const float*>(a->a_log), a->b, a->c, a->y,
+      static_cast<float*>(a->state), static_cast<float*>(a->states),
+      static_cast<float*>(a->s_last), a->s_in,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], 0}, Strides{st[8], st[9], 0},
+      Strides{st[10], st[11], st[12]}, a->len, a->n_heads,
+      (a->len + a->tile - 1) / a->tile, a->group, a->vec};
   const cudaError_t err =
-      dtype == 0
-          ? launch_dims<float>(head_dim, state_dim, pr, batch, s)
-          : launch_dims<bf16>(head_dim, state_dim, pr, batch, s);
+      a->dtype == 0
+          ? launch_dims<float>(a->head_dim, a->state_dim, pr, a->batch, s)
+          : launch_dims<bf16>(a->head_dim, a->state_dim, pr, a->batch, s);
   return static_cast<int>(err);
 }

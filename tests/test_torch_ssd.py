@@ -326,6 +326,17 @@ class TestKernelDecomposition:
         err_once = float((once - exact).abs().max())
         assert err_split < 1e-4 < 1e-3 < err_once
 
+def vector_loads(x, b, c) -> bool:
+    """Whether `ops.launch` lets the kernel load x, b and c (bfloat16, 80
+    heads of P 64, N 128) by 16 bytes: their strides (`_layout_args`) and
+    their starts allow it."""
+    bsz, l = x.shape[:2]
+    pl = ops.plan(bsz, l, 80, 64, 128, torch.bfloat16, sms=132)
+    _, rows = ops._layout_args(pl, x.stride(), (l * 80, 80, 1), b.stride(),
+                               c.stride(), (l * 5120, 5120, 64, 1))
+    return rows and not any(t.data_ptr() % 16 for t in (x, b, c))
+
+
 # L -> (chunks, head group) of Mamba2-2.7B's shape (80 heads, P 64, N 128,
 # one row) on 132 SMs, bfloat16 (tile 128) and float32 (tile 64)
 PLANS = {1: ((1, 1), (1, 1)), 63: ((1, 1), (1, 1)), 64: ((1, 1), (1, 1)),
@@ -354,22 +365,29 @@ class TestPlan:
         assert shapes["states"] == ((1, 80, chunks, 64, 128), torch.float32)
         assert shapes["s_in"] == ((1, 80, chunks, 64, 128), tdt)
         assert shapes["s_last"] == ((1, 80, chunks), torch.float32)
-        # one allocation, each part on a 256-byte boundary
+        # one allocation, y first, each part on a 256-byte boundary
         per_chunk = 80 * 64 * 128 * (4 + tdt.itemsize) + 80 * 4
-        raw = ops.scratch(pl, "cpu")
+        y_bytes = l * 80 * 64 * tdt.itemsize
+        raw = ops.buffer(pl, "cpu")
         parts = ops.scratch_views(pl, raw)
+        assert list(pl.scratch_layout) == ["y", "states", "s_last", "s_in"]
+        assert pl.scratch_layout["y"] == (0, y_bytes)
+        assert parts["y"].shape == (1, l, 80, 64)
         assert sum(n for _, n in pl.scratch_layout.values()) == \
-            chunks * per_chunk
-        assert raw.numel() == pl.scratch_bytes < chunks * per_chunk + 512
+            chunks * per_chunk + y_bytes
+        assert raw.dtype == tdt
+        assert raw.numel() * tdt.itemsize == pl.scratch_bytes < \
+            chunks * per_chunk + y_bytes + 768
         for name, (offset, n) in pl.scratch_layout.items():
             assert offset % 256 == 0
-            assert parts[name].shape == shapes[name][0]
+            if name != "y":
+                assert parts[name].shape == shapes[name][0]
             assert parts[name].data_ptr() - raw.data_ptr() == offset
 
     def test_serve_scratch_fits_in_l2(self):
         """At 1,024 tokens the float32 chunk states of the bfloat16
         instance take 21 MB, well inside the H100's 50 MB L2."""
-        pl = ops.plan(1, 1024, 80, 64, 128, torch.bfloat16)
+        pl = ops.plan(1, 1024, 80, 64, 128, torch.bfloat16, sms=132)
         shape, dtype = pl.scratch_shapes()["states"]
         assert int(np.prod(shape)) * dtype.itemsize == 20_971_520
 
@@ -378,10 +396,11 @@ class TestPlan:
     def test_groups(self, p, n):
         pl = ops.plan(2, 4096, 80, p, n, torch.bfloat16, sms=114)
         assert pl.group == ops.MAX_GROUP        # 32 x 80 x 2 units
-        short = ops.plan(1, 5, 3, p, n, torch.float32)
+        short = ops.plan(1, 5, 3, p, n, torch.float32, sms=132)
         assert (short.chunks, short.group, short.grid) == (1, 1, (1, 3, 1))
-        empty = ops.plan(1, 0, 3, p, n, torch.float32)
+        empty = ops.plan(1, 0, 3, p, n, torch.float32, sms=132)
         assert empty.chunks == 0 and empty.device_launches == 0
+        assert empty.scratch_bytes == 0
 
     def test_vector_loads(self):
         """16-byte loads only where the start and the row strides allow
@@ -390,7 +409,31 @@ class TestPlan:
         xbc = torch.zeros((2, 10, 5376), dtype=torch.bfloat16)
         x = xbc[..., :5120].reshape(2, 10, 80, 64)
         b, c = xbc[..., 5120:5248], xbc[..., 5248:]
-        assert ops.vector_loads(x, b, c)
-        assert not ops.vector_loads(xbc[..., 1:129])
-        odd = torch.zeros((2, 10, 5377), dtype=torch.bfloat16)[..., :128]
-        assert not ops.vector_loads(odd)
+        assert vector_loads(x, b, c)
+        assert not vector_loads(x, xbc[..., 1:129], c)
+        odd = torch.zeros((2, 10, 5377), dtype=torch.bfloat16)
+        assert not vector_loads(odd[..., :5120].reshape(2, 10, 80, 64),
+                                odd[..., 5120:5248], odd[..., 5248:5376])
+
+    @pytest.mark.parametrize("width", [5376, 5377])
+    def test_packed_args(self, width):
+        """The arguments packed as ssd_scan.cu's `Args` (224 bytes): the
+        strides and sizes once per plan and layout, with the row-stride
+        part of the 16-byte check."""
+        assert ops._POINTERS.size + ops._LAYOUT.size == 224
+        xbc = torch.zeros((2, 10, width), dtype=torch.bfloat16)
+        x = xbc[..., :5120].unflatten(-1, (80, 64))
+        b, c = xbc[..., 5120:5248], xbc[..., 5248:5376]
+        dt = torch.zeros((2, 10, 80))
+        y = torch.zeros((2, 10, 80, 64), dtype=torch.bfloat16)
+        pl = ops.plan(2, 10, 80, 64, 128, torch.bfloat16, sms=132)
+        strides = (x.stride(), dt.stride(), b.stride(), c.stride(),
+                   y.stride())
+        tail, rows = ops._layout_args(pl, *strides)
+        assert rows == (width == 5376) == vector_loads(x, b, c)
+        assert ops._layout_args(pl, *strides) == (tail, rows)
+        fields = ops._LAYOUT.unpack(tail)
+        assert fields[:13] == (width * 10, width, 64, 10 * 80, 80, 1,
+                               width * 10, width, width * 10, width,
+                               10 * 80 * 64, 80 * 64, 64)
+        assert fields[13:] == (2, 10, 80, 64, 128, 1, 128, pl.group)
