@@ -47,6 +47,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    port's float64 numpy backend runs the same trace as the reference for
    the result, held at the bounds of `TestBackendAgreement` in
    `tests/test_fleetsim.py`.
+3b. The event engine (`engine="event"`, the reference's default) on the
+   paper's Splitwise cluster, `ExperimentConfig()`: 22 machines (5
+   prompt, 17 token) x 40 cores, 60 rps of conversation-poisson for
+   120 s, policy "proposed", router "jsq", seed 0. It runs on the host
+   in numpy float64 with the default numpy settler, through
+   `run_experiment` and again step by step (trace, `Cluster`, `run`,
+   `collect`), and the two results must be identical; it is held against
+   the fleet engine's numpy backend on the same config at the bounds of
+   the reference's `TestEventParity`. Then the aging settle goes to the
+   card: one identical mid-run state is settled once by the numpy and
+   once by the torch settler (`FleetAgingSettler(backend="torch")`, the
+   aging kernel at N = 880) within `TestJaxBackend`'s bound, and the
+   whole cell runs with the torch settler put in place of the numpy
+   one, the aging kernel launched once per idling period, held against
+   the numpy run at `TestBackendAgreement`'s bounds. Last, the cell's
+   `Cluster.run` with each settler and a settle of each, timed in turns
+   on the host's clock, beside the kernel's own time at N = 880 (CUDA graph, as in
+   phase 2) and the launch floor.
 4. Llama-3-8B at full width (32 layers, bfloat16, random weights from
    seed 0) served by the port's `InferenceEngine` and `CoreManager`: 8
    requests of 128 to 1,024 prompt tokens and 32 new tokens each, 4
@@ -64,8 +82,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    the decode step has no kernel), and the same two holds of the kernel
    path against the plain path (`ssd_chunked`) follow.
 
-Each serving phase sets every kernel's launch count to 0 just before it
-and reads them all just after: a kernel of the path must have run
+Phases 3, 3b and each serving phase set every kernel's launch count to
+0 just before their main run and read them all just after: a kernel of the path must have run
 exactly as often as the path calls it, and no other kernel at all.
 
 The last two lines are one JSON object per kernel and the device line.
@@ -101,6 +119,18 @@ FLEET = dict(n_prompt=45, n_token=155, num_cores=40, rate_rps=545.455,
 # TestBackendAgreement bounds (reference tests/test_fleetsim.py)
 BOUNDS = {"completed": 0.01, "mean_latency_s": 0.01,
           "p50_degradation": 0.02, "fleet_yearly_kgco2eq": 0.05}
+
+# phase 3b: ExperimentConfig() itself, the reference's default cell
+# (event-22x120s); TestEventParity bounds (reference tests/test_fleetsim.py)
+EVENT_FLEET_BOUNDS = {"completed": 0.10, "mean_latency_s": 0.10,
+                      "p99_latency_s": 0.10, "p50_degradation": 0.15,
+                      "p50_freq_cv": 0.10, "fleet_yearly_kgco2eq": 0.15,
+                      "fleet_energy_kwh": 0.05}
+# TestJaxBackend bound (reference tests/test_fleetstate.py) for one settle
+SETTLE_TOL = dict(rtol=2e-6, atol=1e-8)
+# the mid-run state settled by both settlers: run to T, settle at T + DT
+SETTLE_T, SETTLE_DT = 5.0, 0.7
+SETTLE_CALLS = 200
 
 # (b, h, hkv, s, d, window, dtype): the reference's TestFlashAttentionKernel
 # shapes in float32 and bfloat16, its windows in both dtypes (bfloat16 runs
@@ -279,22 +309,28 @@ def phase_environment(torch, kernels) -> None:
                 log(f"[build] {kernel.name}: {line.strip()}")
 
 
+def empty_launcher(torch, floor):
+    """A function of n that launches the empty kernel `floor` with the
+    geometry aging_update.cu gives n elements: blocks of 256, at most 16
+    a SM."""
+    empty = floor.function()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def empty_launch(n):
+        err = empty(min(-(-n // 256), 16 * sms), 256,
+                    torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty launch failed: CUDA error {err}")
+    return empty_launch
+
+
 def phase_aging_kernel(torch, np, params, floor):
     """advance_fleet (kernel) vs aging_update_ref (plain) on the card;
     `floor`: the `CudaKernel` of an empty launch, timed beside it."""
     from repro_torch.kernels.aging_update.ops import advance_fleet
     from repro_torch.kernels.aging_update.ref import aging_update_ref
     dev = torch.device("cuda")
-    empty = floor.function()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def empty_launch(n):
-        # the geometry aging_update.cu gives n elements: blocks of 256,
-        # at most 16 a SM
-        err = empty(min(-(-n // 256), 16 * sms), 256,
-                    torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"empty launch failed: CUDA error {err}")
+    empty_launch = empty_launcher(torch, floor)
     row = {}
     for n in KERNEL_NS:
         rng = np.random.default_rng(n)
@@ -552,6 +588,31 @@ def phase_ssd_kernel(torch, np):
     return main_row
 
 
+def deltas(res, ref, bounds) -> dict:
+    """Relative deltas of `res` from `ref` in each metric of `bounds`."""
+    values = {
+        "completed": lambda r: r.completed,
+        "mean_latency_s": lambda r: r.mean_latency_s,
+        "p99_latency_s": lambda r: r.p99_latency_s,
+        "p50_degradation": lambda r: r.mean_degradation_percentiles[50],
+        "p50_freq_cv": lambda r: r.freq_cv_percentiles[50],
+        "fleet_yearly_kgco2eq": lambda r: r.fleet_yearly_kgco2eq,
+        "fleet_energy_kwh": lambda r: r.fleet_energy_kwh,
+    }
+    return {k: rel(values[k](res), values[k](ref)) for k in bounds}
+
+
+def hold(tag, got, bounds) -> None:
+    """Log the relative deltas `got` beside `bounds`; raise if one is
+    not inside its bound."""
+    log(f"{tag} relative deltas: "
+        + ", ".join(f"{k} {v:.3e} (bound {bounds[k]})"
+                    for k, v in got.items()))
+    bad = {k: v for k, v in got.items() if not v < bounds[k]}
+    if bad:
+        raise AssertionError(f"{tag}: outside the bounds: {bad}")
+
+
 def phase_fleet(torch, kernels):
     """`kernels`: the `CudaKernel` of every kernel the fleet path runs."""
     from repro_torch.sim import ExperimentConfig, run_experiment
@@ -598,17 +659,6 @@ def phase_fleet(torch, kernels):
             f"{machine_s / w:.1f} machine-s/wall-s, completed "
             f"{r.completed}, p99_latency_s {r.p99_latency_s!r}, "
             f"fleet_yearly_kgco2eq {r.fleet_yearly_kgco2eq!r}")
-    deltas = {
-        "completed": rel(res.completed, ref.completed),
-        "mean_latency_s": rel(res.mean_latency_s, ref.mean_latency_s),
-        "p50_degradation": rel(res.mean_degradation_percentiles[50],
-                               ref.mean_degradation_percentiles[50]),
-        "fleet_yearly_kgco2eq": rel(res.fleet_yearly_kgco2eq,
-                                    ref.fleet_yearly_kgco2eq),
-    }
-    log(f"[fleet] torch/cuda vs numpy relative deltas: "
-        + ", ".join(f"{k} {v:.3e} (bound {BOUNDS[k]})"
-                    for k, v in deltas.items()))
     n = cfg.n_machines
     finite = all(math.isfinite(v) for v in (
         res.mean_latency_s, res.p99_latency_s, res.fleet_yearly_kgco2eq))
@@ -616,9 +666,151 @@ def phase_fleet(torch, kernels):
             or len(res.per_machine_residency) != n or res.completed <= 0:
         raise AssertionError("fleet result is not finite or has the "
                              "wrong shape")
-    bad = {k: v for k, v in deltas.items() if not v < BOUNDS[k]}
-    if bad:
-        raise AssertionError(f"torch/cuda disagrees with numpy: {bad}")
+    hold("[fleet] torch/cuda vs numpy", deltas(res, ref, BOUNDS), BOUNDS)
+    return launches
+
+
+def phase_event(torch, np, kernels, floor):
+    """`kernels`: the `CudaKernel` of every kernel of the port; the
+    event path launches the aging kernel only. `floor`: the empty
+    kernel, timed beside it."""
+    from repro_torch.kernels.aging_update.ops import KERNEL, advance_fleet
+    from repro_torch.kernels.aging_update.ref import aging_update_ref
+    from repro_torch.sim import (Cluster, ExperimentConfig,
+                                 FleetAgingSettler, collect, run_experiment)
+    from repro_torch.workloads import get_scenario
+
+    cfg = ExperimentConfig()
+    machine_s = cfg.n_machines * cfg.duration_s
+    periods = int(round(cfg.duration_s / cfg.idling_period_s))
+
+    # 1. on the host, the default numpy settler: through the entry point,
+    # then step by step for the event count; both must be identical
+    t0 = time.perf_counter()
+    res = run_experiment(cfg)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace = get_scenario(cfg.scenario).generate(
+        rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
+    gen = time.perf_counter() - t0
+
+    def cluster_run(settler_kw, until=None):
+        cluster = Cluster(cfg)
+        if settler_kw:
+            cluster.fleet_settler = FleetAgingSettler(
+                [m.manager for m in cluster.machines], **settler_kw)
+        t0 = time.perf_counter()
+        cluster.run(trace, until or cfg.duration_s,
+                    sample_period_s=cfg.sample_period_s)
+        return cluster, time.perf_counter() - t0
+
+    cluster, run_wall = cluster_run({})
+    again = collect(cluster, cfg)
+    if json.dumps(again.to_dict(), sort_keys=True) \
+            != json.dumps(res.to_dict(), sort_keys=True):
+        raise AssertionError("event-22x120s is not deterministic")
+    events = cluster.queue.processed
+    log(f"[event] event-22x120s numpy via run_experiment (trace "
+        f"generation included): {wall:.3f} s wall, {machine_s / wall:.1f} "
+        f"machine-s/wall-s; trace {gen:.3f} s; Cluster.run {run_wall:.3f} "
+        f"s, {events} events, {events / run_wall:.0f} events/s; completed "
+        f"{res.completed}, p99_latency_s {res.p99_latency_s!r}, "
+        f"fleet_yearly_kgco2eq {res.fleet_yearly_kgco2eq!r}; "
+        f"a second run identical")
+    finite = all(math.isfinite(v) for v in (
+        res.mean_latency_s, res.p99_latency_s, res.fleet_yearly_kgco2eq))
+    if not finite or res.completed <= 0 or res.engine != "event" \
+            or len(res.per_machine_degradation) != cfg.n_machines:
+        raise AssertionError("event result is not finite or has the "
+                             "wrong shape")
+
+    # 2. against the fleet engine on the same config
+    t0 = time.perf_counter()
+    fleet = run_experiment(cfg.with_engine("fleet", backend="numpy"))
+    log(f"[event] fleet engine, numpy, same config: "
+        f"{time.perf_counter() - t0:.3f} s wall, completed "
+        f"{fleet.completed}")
+    hold("[event] fleet engine vs event engine",
+         deltas(fleet, res, EVENT_FLEET_BOUNDS), EVENT_FLEET_BOUNDS)
+
+    # 3a. one identical mid-run state, settled once by each settler
+    states = []
+    for kw in ({}, {"backend": "torch", "device": "cuda"}):
+        mid, _ = cluster_run({}, until=SETTLE_T)
+        managers = [m.manager for m in mid.machines]
+        FleetAgingSettler(managers, **kw).settle(SETTLE_T + SETTLE_DT)
+        states.append(np.stack([m.dvth for m in managers]))
+    want, got = states
+    err = float(np.abs(got - want).max())
+    ok = bool(np.allclose(got, want, **SETTLE_TOL))
+    log(f"[event] one settle of the (22, 40) mid-run state at "
+        f"t={SETTLE_T + SETTLE_DT}: torch/cuda vs numpy max_abs_err "
+        f"{err:.3e} (rtol {SETTLE_TOL['rtol']}, atol {SETTLE_TOL['atol']}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("the torch settler disagrees with numpy")
+
+    # 3b. the whole cell with the torch settler on the card
+    for k in kernels:
+        k.launches = 0
+    cluster, t_wall = cluster_run({"backend": "torch", "device": "cuda"})
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    on_card = collect(cluster, cfg)
+    log(f"[event] torch/cuda settler: Cluster.run {t_wall:.3f} s "
+        f"(numpy settler {run_wall:.3f} s), completed {on_card.completed}, "
+        f"launches {launches}")
+    # every periodic tick settles, and in every idling period some core
+    # has aged since its last update: one launch per period
+    if launches["aging_update"] != periods:
+        raise AssertionError(f"aging_update launched "
+                             f"{launches['aging_update']} times, "
+                             f"expected {periods}")
+    if any(n for name, n in launches.items() if name != "aging_update"):
+        raise AssertionError(f"a kernel off the event path ran: {launches}")
+    hold("[event] torch/cuda settler vs numpy settler",
+         deltas(on_card, res, BOUNDS), BOUNDS)
+
+    # 3c. the cell's Cluster.run with each settler, and a settle of each,
+    # in turns on the host's clock; the kernel alone at the cell's N on
+    # the device
+    walls = {"numpy": [], "torch": []}
+    for name in ("numpy", "torch", "torch", "numpy"):
+        kw = {"backend": "torch", "device": "cuda"} if name == "torch" else {}
+        walls[name].append(cluster_run(kw)[1])
+    log(f"[event] Cluster.run in turns (numpy, torch, torch, numpy): "
+        + "; ".join(f"{k} settler " + ", ".join(f"{w:.3f}" for w in v)
+                    + " s" for k, v in walls.items()))
+    managers = [m.manager for m in cluster.machines]
+    settlers = {"numpy": FleetAgingSettler(managers),
+                "torch": FleetAgingSettler(managers, backend="torch",
+                                           device="cuda")}
+    now = [cfg.duration_s]
+    per = {"numpy": [], "torch": []}
+    for name in ("numpy", "torch", "torch", "numpy"):
+        for _ in range(SETTLE_CALLS):
+            now[0] += 1e-3
+            t0 = time.perf_counter()
+            settlers[name].settle(now[0])
+            per[name].append(time.perf_counter() - t0)
+    settle_us = {k: sorted(v)[len(v) // 2] * 1e6 for k, v in per.items()}
+    dvth, temps, stress, tau = settlers["torch"]._gather(now[0] + 1e-3)
+    args = [torch.tensor(a.ravel(), dtype=torch.float32, device="cuda")
+            for a in (dvth, temps, stress, tau)]
+    n = args[0].numel()
+    params = settlers["torch"].params
+    empty_launch = empty_launcher(torch, floor)
+    kernel_us = graph_ms(lambda: advance_fleet(*args, params)) * 1e3
+    plain_us = graph_ms(lambda: aging_update_ref(*args, params)) * 1e3
+    floor_us = graph_ms(lambda: empty_launch(n)) * 1e3
+    bound_us = max(AGING_BYTES * n / HBM_BYTES_PER_S,
+                   AGING_OPS * n / F32_FLOP_PER_S) * 1e6
+    log(f"[event] a settle at (22, 40), medians of {2 * SETTLE_CALLS} in "
+        f"turns: torch/cuda {settle_us['torch']:.2f} us, numpy "
+        f"{settle_us['numpy']:.2f} us; the aging kernel alone at N={n} "
+        f"(CUDA graph) {kernel_us:.3f} us, plain {plain_us:.3f} us, an "
+        f"empty kernel of the same geometry {floor_us:.3f} us, bound "
+        f"{bound_us:.4f} us (bytes)")
     return launches
 
 
@@ -844,6 +1036,10 @@ def main() -> int:
     attention_rows = phase_attention_kernels(torch, np)
     ssd_row = phase_ssd_kernel(torch, np)
     launches = phase_fleet(torch, (AGING,))
+    event = phase_event(torch, np, every, floor)
+    by_path = {"fleet-200x1h": launches["aging_update"],
+               "event-22x120s": event["aging_update"]}
+    launches["aging_update"] = sum(by_path.values())
 
     def dense(cfg, iterations):
         return {"aging_update": 0, "ssd_scan": 0,
@@ -864,7 +1060,8 @@ def main() -> int:
         dict({"name": "aging_update", "route": "cuda",
               "source": f"{src_dir}/aging_update/aging_update.cu",
               "replaces": "src/repro/kernels/aging_update/aging_update.py:41",
-              "launches": launches["aging_update"], "library_ms": None},
+              "launches": launches["aging_update"],
+              "launches_by_path": by_path, "library_ms": None},
              **aging_row),
         dict({"name": "flash_attention", "route": "cuda",
               "source": f"{src_dir}/flash_attention/flash_attention.cu",

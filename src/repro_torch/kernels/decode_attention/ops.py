@@ -84,11 +84,17 @@ def _check(q, k_cache, v_cache) -> None:
                          f"(B, S, Hkv, D), got {tuple(q.shape)} and "
                          f"{tuple(k_cache.shape)}")
     b, h, d = q.shape
-    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != b
+    if (k_cache.shape[:3] != v_cache.shape[:3] or k_cache.shape[0] != b
             or k_cache.shape[3] != d):
         raise ValueError(f"decode_bhd: caches {tuple(k_cache.shape)} and "
                          f"{tuple(v_cache.shape)} do not fit q "
                          f"{tuple(q.shape)}")
+    if v_cache.shape[3] != d and q.device.type != "cpu":
+        raise ValueError(f"decode_bhd: v_cache's head dim "
+                         f"{v_cache.shape[3]} differs from q's {d}; the "
+                         f"kernel has no such instance and there is no "
+                         f"plain route off the CPU yet (MLA: ROADMAP "
+                         f"A10/A11)")
     if k_cache.shape[2] == 0 or h % k_cache.shape[2]:
         raise ValueError(f"decode_bhd: {h} query heads do not group over "
                          f"{k_cache.shape[2]} cache heads")
@@ -130,9 +136,10 @@ def launch(q, k_cache, v_cache, pos, out, *, window, scale, stream) -> int:
 
 def decode_bhd(q, k_cache, v_cache, pos, *, window=0, use_kernel=True,
                scale=None):
-    """q: (B, H, D); caches (B, S, Hkv, D); pos () or (B,) valid lengths
-    (the current token already written at pos - 1). Returns (B, H, D) in
-    q's dtype. `scale` defaults to D ** -0.5 (Python double, rounded to
+    """q: (B, H, D); k_cache (B, S, Hkv, D), v_cache (B, S, Hkv, Dv); pos
+    () or (B,) valid lengths (the current token already written at
+    pos - 1). Returns (B, H, Dv) in q's dtype; Dv may differ from D (MLA)
+    on CPU tensors only. `scale` defaults to D ** -0.5 (Python double, rounded to
     float32 by the kernel)."""
     _check(q, k_cache, v_cache)
     b, h, d = q.shape

@@ -23,8 +23,9 @@ def decode_attention_ref(q, k_cache, v_cache, pos, *, window=0):
 
 def decode_attention_ref_explicit(q, k_cache, v_cache, pos, *, window=0,
                                   scale=None):
-    """Fully explicit float32 oracle. q: (B, H, D); caches (B, S, Hkv,
-    D); pos (B,) valid lengths. Returns (B, H, D) in q's dtype."""
+    """Fully explicit float32 oracle. q: (B, H, D); k_cache (B, S, Hkv,
+    D), v_cache (B, S, Hkv, Dv); pos (B,) valid lengths. Returns (B, H,
+    Dv) in q's dtype."""
     h, d = q.shape[1], q.shape[2]
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = h // hkv

@@ -73,9 +73,14 @@ def _check(q, k, v) -> None:
             raise TypeError(f"attention_bhsd: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
     b, _, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"attention_bhsd: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if v.shape[3] != d and q.device.type != "cpu":
+        raise ValueError(f"attention_bhsd: v's head dim {v.shape[3]} "
+                         f"differs from q's {d}; the kernel has no such "
+                         f"instance and there is no plain route off the "
+                         f"CPU yet (MLA: ROADMAP A10/A11)")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"attention_bhsd: {h} query heads do not group "
                          f"over {k.shape[2]} KV heads")
@@ -116,8 +121,9 @@ def attention_bhsd(q, k, v, *, causal=True, window=0, use_kernel=True,
                    scale=None, q_offset=0):
     """Flash attention in (B, S, H, D) model layout. GQA-aware.
 
-    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D) with H % Hkv == 0. Returns
-    (B, Sq, H, D) in q's dtype. `scale` defaults to D ** -0.5, formed in
+    q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) with
+    H % Hkv == 0. Returns (B, Sq, H, Dv) in q's dtype. Dv may differ from
+    D (MLA) on CPU tensors only. `scale` defaults to D ** -0.5, formed in
     Python double and rounded to float32, as the reference forms it.
     """
     _check(q, k, v)

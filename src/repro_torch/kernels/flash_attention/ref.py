@@ -15,8 +15,8 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
                         q_offset=0):
-    """q: (B, H, Sq, D); k/v: (B, Hkv, Skv, D). Returns (B, H, Sq, D) in
-    q's dtype. Query i (global position i + q_offset) sees key j iff
+    """q: (B, H, Sq, D); k: (B, Hkv, Skv, D); v: (B, Hkv, Skv, Dv).
+    Returns (B, H, Sq, Dv) in q's dtype. Query i (global position i + q_offset) sees key j iff
     j <= i + q_offset (when causal) and j > i + q_offset - window (when
     window)."""
     h, sq, d = q.shape[1], q.shape[2], q.shape[3]

@@ -29,11 +29,12 @@ from repro_torch.hardware.inventory import canonical_fleet_name
 from repro_torch.power.registry import canonical_power_model_name
 from repro_torch.workloads import canonical_scenario_name
 
-# The policy, router and fault-model registries are not ported yet
-# (ROADMAP A3-A5). Each of their canonical-name helpers is the shared
-# registry normalizer, so the port takes that normalizer directly.
-from repro_torch.registry import canonical_name as canonical_policy_name
-from repro_torch.registry import canonical_name as canonical_router_name
+from repro_torch.core.policies import canonical_policy_name
+from repro_torch.sim.routing import canonical_router_name
+
+# The fault-model registry is not ported yet (ROADMAP A4). Its
+# canonical-name helper is the shared registry normalizer, so the port
+# takes that normalizer directly.
 from repro_torch.registry import (
     canonical_name as canonical_fault_model_name)
 

@@ -1,11 +1,11 @@
 """Metric aggregation shared by the engines (paper §6.1.3), copied
 from `repro.sim.metrics`.
 
-`price_and_build` prices per-machine aging and state residencies into
-the frozen `ExperimentResult`; the fleet engine feeds it stacked arrays.
-The reference's `collect`, which reads a finished event-engine
-`Cluster`, and the telemetry carbon-window rows join with the event
-engine and telemetry (ROADMAP A5).
+`collect` reads a finished event-engine `Cluster`, and the fleet engine
+feeds stacked arrays; both go through `price_and_build`, which prices
+per-machine aging and state residencies into the frozen
+`ExperimentResult`. The reference's telemetry carbon-window rows join
+with telemetry (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -36,6 +36,71 @@ def _role_weighted_cv(degs: np.ndarray, n_prompt: int) -> float:
         return float("nan")
     total = sum(n for n, _ in parts)
     return sum(n * cv for n, cv in parts) / total
+
+
+def collect(cluster, cfg: ExperimentConfig,
+            carbon_model: CarbonModel | None = None,
+            power_model: PowerModel | None = None,
+            telemetry=None) -> ExperimentResult:
+    """Aggregate a finished `repro_torch.sim.cluster.Cluster` run into an
+    `ExperimentResult` (the counterpart of `repro.sim.metrics.collect`).
+
+    `carbon_model` / `power_model` let a caller that already resolved
+    `cfg.carbon_model` / `cfg.power_model` pass them in instead of
+    constructing them twice. `robustness` stays None: the cluster
+    refuses fault models (ROADMAP A4). `telemetry` must be None
+    (ROADMAP A5, telemetry).
+    """
+    if telemetry is not None:
+        raise NotImplementedError(
+            "collect(telemetry=...): telemetry is not ported yet: "
+            "ROADMAP A5 (telemetry)")
+    cvs, degs, idle_all = [], [], []
+    task_samples = []
+    for m in cluster.machines:
+        snap = m.manager.snapshot()
+        cvs.append(snap["cv"])
+        degs.append(snap["mean_degradation"])
+        idle_all.extend(m.manager.metrics.idle_norm_samples)
+        task_samples.append(np.asarray(m.task_count_samples))
+    cvs = np.asarray(cvs)
+    degs = np.asarray(degs)
+    idle_all = np.asarray(idle_all) if idle_all else np.zeros(1)
+    # The cluster observed each completion as it happened; in exact mode
+    # the aggregate evaluates the same numpy expressions over the same
+    # sample order a per-request array would. When nothing completed it
+    # reports NaN, not a fabricated perfect latency of 0.0.
+    mean_latency = cluster.latency.mean()
+    p99_latency = cluster.latency.percentile(99)
+    all_tasks = np.concatenate(task_samples) if task_samples else np.zeros(1)
+
+    elapsed = max(m.manager.now for m in cluster.machines)
+    residencies = tuple(m.manager.residency() for m in cluster.machines)
+    return price_and_build(
+        cfg,
+        cvs=cvs,
+        degs=degs,
+        idle_norm_percentiles=percentile_dict(idle_all),
+        oversub_frac_below=float((idle_all < -0.1).mean()),
+        task_count_mean=float(all_tasks.mean()),
+        task_count_max=int(all_tasks.max()),
+        mean_latency_s=mean_latency,
+        p99_latency_s=p99_latency,
+        completed=cluster.completed_count,
+        aging_params=cluster.machines[0].manager.params,
+        elapsed=elapsed,
+        residencies=residencies,
+        robustness=None,
+        per_machine_idle_norm=tuple(
+            tuple(float(x) for x in m.manager.metrics.idle_norm_samples)
+            for m in cluster.machines),
+        per_machine_task_samples=tuple(
+            tuple(int(x) for x in samples) for samples in task_samples),
+        engine="event",
+        carbon_model=carbon_model,
+        power_model=power_model,
+        fleet_inventory=cluster.inventory,
+    )
 
 
 def percentile_dict(x) -> dict[int, float]:

@@ -1,25 +1,36 @@
-"""Experiment runner of the port: replay a workload scenario against the
-fleet engine under a policy (the counterpart of `repro.sim.runner`).
+"""Experiment runner of the port: replay a workload scenario against a
+cluster under a policy (the counterpart of `repro.sim.runner`).
 
-    cfg = ExperimentConfig(duration_s=60.0).with_engine("fleet")
-    result = run_experiment(cfg)            # torch backend, on CUDA
+    cfg = ExperimentConfig(duration_s=60.0)
+    result = run_experiment(cfg)            # the event engine, host numpy
+    fleet = run_experiment(cfg.with_engine("fleet"))   # torch, on CUDA
     sweep = run_policy_sweep(cfg, policies=("linux", "proposed"))
 
-Only `engine="fleet"` is ported. The event engine and telemetry raise
-NotImplementedError here, and what the fleet engine does not run yet
-raises there (`repro_torch.sim.fleetsim.FleetEngine`), each naming its
-ROADMAP item, rather than falling back to anything.
+`engine="event"` (the default, as in the reference) runs the bit-exact
+event loop of `repro_torch.sim.cluster` and `collect`s its result;
+`engine="fleet"` runs the vectorized fleet engine. Telemetry raises
+NotImplementedError here, and what an engine does not run yet raises
+there (faults in `Cluster` and `FleetEngine`, checkpoints and ragged
+torch fleets in `FleetEngine`), each naming its ROADMAP item, rather
+than falling back to anything.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import multiprocessing
+
 from repro_torch.carbon import get_carbon_model
+from repro_torch.core.policies import canonical_policy_name
 from repro_torch.hardware.inventory import canonical_fleet_name, resolve_fleet
 from repro_torch.power import get_power_model
 from repro_torch.power.registry import canonical_power_model_name
 from repro_torch.registry import canonical_name
+from repro_torch.sim.cluster import Cluster
 from repro_torch.sim.config import ExperimentConfig
 from repro_torch.sim.fleetsim import run_fleet_experiment
+from repro_torch.sim.metrics import collect
 from repro_torch.sim.results import ExperimentResult, SweepResult
+from repro_torch.sim.routing import canonical_router_name
 from repro_torch.workloads import canonical_scenario_name, get_scenario
 
 DEFAULT_SWEEP = ("linux", "least-aged", "proposed")
@@ -32,10 +43,6 @@ def run_experiment(cfg: ExperimentConfig,
             "run_experiment takes an ExperimentConfig (the pre-registry "
             "run_experiment(policy, **kwargs) signature was removed); "
             f"got {cfg!r}")
-    if cfg.engine != "fleet":
-        raise NotImplementedError(
-            f"engine={cfg.engine!r} is not ported yet: ROADMAP A3/A5 "
-            f"(event engine); use cfg.with_engine('fleet')")
     if telemetry is not None or cfg.telemetry:
         raise NotImplementedError(
             "telemetry is not ported yet: ROADMAP A5 (telemetry)")
@@ -45,9 +52,16 @@ def run_experiment(cfg: ExperimentConfig,
     power_model = get_power_model(cfg.power_model, **cfg.power_options)
     scenario = get_scenario(cfg.scenario, **cfg.scenario_options)
     resolve_fleet(cfg.fleet, cfg.fleet_options, cfg.n_machines)
-    return run_fleet_experiment(cfg, carbon_model=carbon_model,
-                                power_model=power_model,
-                                scenario=scenario)
+    if cfg.engine == "fleet":
+        return run_fleet_experiment(cfg, carbon_model=carbon_model,
+                                    power_model=power_model,
+                                    scenario=scenario)
+    trace = scenario.generate(rate_rps=cfg.rate_rps,
+                              duration_s=cfg.duration_s, seed=cfg.seed)
+    cluster = Cluster(cfg)
+    cluster.run(trace, cfg.duration_s, sample_period_s=cfg.sample_period_s)
+    return collect(cluster, cfg, carbon_model=carbon_model,
+                   power_model=power_model)
 
 
 def run_policy_sweep(
@@ -58,16 +72,28 @@ def run_policy_sweep(
     power_models=None,
     fault_models=None,
     fleets=None,
+    parallel: int | None = None,
 ) -> SweepResult:
     """Run the same experiment across policies (x scenarios x routers
     x power models x fault models x fleets), keyed as
     `repro.sim.runner.run_policy_sweep` keys them. With every axis but
     policies left at None the result is keyed by policy name; each axis
-    given appends its part of the key. Cells run one after another in
-    this process (the reference's `parallel=` pool is not ported).
-    Without `cfg`, the default config runs on the fleet engine."""
+    given appends its part of the key. Without `cfg`, the default config
+    runs (the event engine, as in the reference).
+
+    `parallel=N` fans the grid's cells across a process pool of N
+    workers. Every cell's seeding is carried by its frozen
+    `ExperimentConfig`, so the result equals the serial sweep, key for
+    key, whatever the worker count or completion order. The pool starts
+    its workers with `spawn`, never `fork`: a child forked after its
+    parent initialised CUDA cannot use CUDA (the torch fleet backend's
+    cells), and forking a process with threads, as torch's, may
+    deadlock. So policies, scenarios or routers registered at run time
+    (not in an imported module) are unknown to the workers; the
+    reference's `fork` pool sees them.
+    """
     if cfg is None:
-        cfg = ExperimentConfig().with_engine("fleet")
+        cfg = ExperimentConfig()
     scenario_axis = scenarios is not None
     router_axis = routers is not None
     power_axis = power_models is not None
@@ -84,7 +110,7 @@ def run_policy_sweep(
         s_name = canonical_scenario_name(s)
         s_cfg = cfg if s_name == cfg.scenario else cfg.with_scenario(s_name)
         for r in (routers if router_axis else (cfg.router,)):
-            r_name = canonical_name(r)
+            r_name = canonical_router_name(r)
             r_cfg = s_cfg if r_name == s_cfg.router \
                 else s_cfg.with_router(r_name)
             for w in (power_models if power_axis else (cfg.power_model,)):
@@ -110,10 +136,18 @@ def run_policy_sweep(
                                    + ((fl_name,) if fleet_axis else ()))
                             cells.append((key if len(key) > 1 else key[0],
                                           run_cfg))
+    if parallel is not None and int(parallel) > 1 and len(cells) > 1:
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=int(parallel),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            # `map` preserves submission order, so keys zip back exactly.
+            results = list(pool.map(run_experiment,
+                                    [c for _, c in cells]))
+        return SweepResult(zip([k for k, _ in cells], results), axes=axes)
     return SweepResult(((key, run_experiment(run_cfg))
                         for key, run_cfg in cells), axes=axes)
 
 
 def _with_policy(cfg: ExperimentConfig, policy) -> ExperimentConfig:
-    name = canonical_name(policy)
+    name = canonical_policy_name(policy)
     return cfg if name == cfg.policy else cfg.with_policy(name)

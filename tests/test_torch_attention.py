@@ -327,6 +327,37 @@ class TestModelAttention:
         np.testing.assert_array_equal(out_k.numpy(), np.asarray(ref_k))
         np.testing.assert_array_equal(out_v.numpy(), np.asarray(ref_v))
 
+    def test_self_attention_mla_head_dims(self):
+        """F1: MLA's q/k head dim 96 with a v head dim of 64, causal."""
+        q, k, v = _draw(12, (1, 8, 4, 96), (1, 8, 4, 96), (1, 8, 4, 64))
+        port = attn.self_attention(*map(torch.from_numpy, (q, k, v)))
+        assert port.shape == (1, 8, 4, 64)
+        _close(port, ref_attn.self_attention(*map(jnp.asarray, (q, k, v))),
+               **tol("float32"))
+
+    @pytest.mark.parametrize("pos", [11, [3, 16]], ids=["scalar", "slots"])
+    def test_decode_attention_mla_head_dims(self, pos):
+        """F1: a (1, 16, 4, 96) k cache beside a (1, 16, 4, 64) v cache."""
+        b = 1 if isinstance(pos, int) else 2
+        q, kc, vc = _draw(13, (b, 1, 8, 96), (b, 16, 4, 96), (b, 16, 4, 64))
+        port = attn.decode_attention(*map(torch.from_numpy, (q, kc, vc)),
+                                     torch.tensor(pos, dtype=torch.int32))
+        assert port.shape == (b, 1, 8, 64)
+        ref = ref_attn.decode_attention(*map(jnp.asarray, (q, kc, vc)),
+                                        jnp.asarray(pos, jnp.int32))
+        _close(port, ref, **tol("float32"))
+
+    def test_mla_head_dims_refused_off_the_cpu(self):
+        """Off the CPU the wrappers raise for Dv != D, naming MLA's
+        ROADMAP items, and never take the plain route."""
+        q = torch.zeros(1, 8, 4, 96, device="meta")
+        v = torch.zeros(1, 8, 4, 64, device="meta")
+        for use_kernel in (True, False):
+            with pytest.raises(ValueError, match="A10/A11"):
+                fa_ops.attention_bhsd(q, q, v, use_kernel=use_kernel)
+            with pytest.raises(ValueError, match="A10/A11"):
+                dec_ops.decode_bhd(q[:, 0], q, v, 1, use_kernel=use_kernel)
+
     def test_cpu_path_launches_no_kernel(self):
         q, k, v = (torch.from_numpy(x) for x in
                    _draw(11, (1, 16, 4, 32), (1, 16, 2, 32),

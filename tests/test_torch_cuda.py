@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
 version, the fleet engine on CUDA against the same engine on the CPU,
+the event engine's torch settler on CUDA against its numpy settler,
 the dense model and serving engine through the attention kernels, and
 the Mamba2 model and engine through the SSD scan kernel. Every test here
 needs an NVIDIA GPU and skips without one; this
@@ -26,7 +27,9 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_phases, ssd_scan_ref
 from repro_torch.models import Model, mamba2
 from repro_torch.serving.engine import InferenceEngine
-from repro_torch.sim import ExperimentConfig, run_experiment
+from repro_torch.sim import (Cluster, ExperimentConfig, FleetAgingSettler,
+                             run_experiment)
+from repro_torch.workloads import get_scenario
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +116,46 @@ def test_fleet_on_cuda_matches_cpu(cuda_device):
                  (on_gpu.mean_degradation_percentiles[50],
                   on_cpu.mean_degradation_percentiles[50])):
         assert _rel(a, b) < 1e-5
+
+
+def _settled_cluster_state(settler_kw):
+    """A mid-run event-engine cluster (22 machines x 40 cores, 5 s of the
+    default config), then one more settle 0.7 s on by the given settler;
+    returns the stacked dVth."""
+    cfg = ExperimentConfig(duration_s=5.0)
+    cluster = Cluster(cfg)
+    trace = get_scenario(cfg.scenario).generate(
+        rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
+    cluster.run(trace, cfg.duration_s)
+    managers = [m.manager for m in cluster.machines]
+    FleetAgingSettler(managers, **settler_kw).settle(5.7)
+    return np.stack([m.dvth for m in managers])
+
+
+def test_event_settler_on_cuda_matches_numpy(cuda_device):
+    """The torch settler through the CUDA aging kernel (one launch) on
+    one identical fleet state, within the reference's TestJaxBackend
+    bound."""
+    want = _settled_cluster_state({})
+    ops.KERNEL.launches = 0
+    got = _settled_cluster_state({"backend": "torch", "device": "cuda"})
+    assert ops.KERNEL.launches == 1
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-8)
+
+
+def test_attention_kernels_refuse_mla_head_dims(cuda_device):
+    """F1: B2 and B3 have no instance for a v head dim other than q's;
+    on CUDA their wrappers raise, naming MLA's ROADMAP items, launch
+    nothing and take no plain route."""
+    q, v = _draw(cuda_device, torch.bfloat16, 0, (1, 8, 4, 96),
+                 (1, 8, 4, 64))
+    before = (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches)
+    for use_kernel in (True, False):
+        with pytest.raises(ValueError, match="A10/A11"):
+            fa_ops.attention_bhsd(q, q, v, use_kernel=use_kernel)
+        with pytest.raises(ValueError, match="A10/A11"):
+            dec_ops.decode_bhd(q[:, 0], q, v, 4, use_kernel=use_kernel)
+    assert (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches) == before
 
 
 def _tol(dtype):

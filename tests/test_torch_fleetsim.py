@@ -223,7 +223,9 @@ class TestOutOfSlice:
     """What the port does not run yet raises, and never falls back."""
 
     @pytest.mark.parametrize("cfg,item", [
-        (ExperimentConfig(duration_s=1.0), "A3/A5"),
+        (ExperimentConfig(duration_s=1.0).with_fault_model("machine-crash"),
+         "A4"),
+        (ExperimentConfig(duration_s=1.0).with_telemetry(), "A5"),
         (ExperimentConfig(duration_s=1.0).with_engine(
             "fleet", backend="numpy").with_fault_model("machine-crash"),
          "A4"),
@@ -233,8 +235,8 @@ class TestOutOfSlice:
             "fleet", backend="numpy").with_telemetry(), "A5"),
         (ExperimentConfig(duration_s=1.0, fleet="xeon-28c:5+epyc-64c:rest")
          .with_engine("fleet", backend="torch", device="cpu"), "A6"),
-    ], ids=["event-engine", "faults", "checkpoint", "telemetry",
-            "mixed-fleet-torch"])
+    ], ids=["event-faults", "event-telemetry", "faults", "checkpoint",
+            "telemetry", "mixed-fleet-torch"])
     def test_raises_not_implemented(self, cfg, item):
         with pytest.raises(NotImplementedError, match=item):
             run_experiment(cfg)
