@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Where the time of the port's torch fleet engine goes, on one GPU.
 
-    python3 benchmarks_torch/profile_fleet.py
+    python3 benchmarks_torch/profile_fleet.py [--fault-model NAME]
+    python3 benchmarks_torch/profile_fleet.py --turns
 
 Runs the fleet cell of `chip_smoke.py` (its `FLEET` config: 200
 machines x 40 cores, conversation-poisson at 545.455 rps, policy
-"proposed") cut to the first 60 simulated seconds, under
-`torch.profiler`, after one untimed warm-up run of the same length.
+"proposed"; with `--fault-model guardband` or `machine-crash`, its
+fault cells `FLEET_GUARDBAND` or `FLEET_CRASH`) cut to the first 60
+simulated seconds, under `torch.profiler`, after one untimed warm-up run
+of the same length.
 Prints the wall time of the profiled run, the summed device time of its
 kernels, the device's idle share
 (1 - device time / wall), the count of kernel launches per simulated
 period, and the kernels that take the most device time. Where the
 profiler records no device time it prints "not measured" for the
-device numbers. Needs CUDA; exits 1 without it.
+device numbers. `--turns` profiles nothing: it times the torch engine
+on the whole hour of the three cells, on one trace, in turns (none,
+guardband, machine-crash, machine-crash, guardband, none), so that the
+host's drift falls on all three alike. Needs CUDA; exits 1 without it.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -26,7 +33,42 @@ SECONDS = 60.0      # simulated horizon: 60 of the cell's 3,600 periods
 TOP = 12            # kernels listed by device time
 
 
+def turns(torch, cells) -> None:
+    """The torch engine's wall on each cell's whole hour, in turns."""
+    from repro_torch.sim import ExperimentConfig
+    from repro_torch.sim.fleetsim import run_fleet_experiment
+    from repro_torch.workloads import get_scenario
+
+    cfgs = {name: ExperimentConfig(**kw).with_engine("fleet",
+                                                     backend="torch")
+            for name, kw in cells.items()}
+    first = next(iter(cfgs.values()))
+    reqs = get_scenario(first.scenario).generate(
+        rate_rps=first.rate_rps, duration_s=first.duration_s,
+        seed=first.seed)
+    walls = {name: [] for name in cfgs}
+    order = list(cfgs) + list(reversed(cfgs))
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_fleet_experiment(cfgs[name], requests=reqs)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+        print(f"{name}: {walls[name][-1]:.3f} s", flush=True)
+    base = sum(walls["none"]) / len(walls["none"])
+    for name, w in walls.items():
+        mean = sum(w) / len(w)
+        print(f"{name}: engine walls {', '.join(f'{x:.3f}' for x in w)} s "
+              f"in turns ({order}), mean {mean:.3f} s, "
+              f"{100 * (mean / base - 1):+.1f}% against none")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fault-model", default="none",
+                    choices=("none", "guardband", "machine-crash"))
+    ap.add_argument("--turns", action="store_true")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_fleet: CUDA is not available", file=sys.stderr)
@@ -35,7 +77,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import FLEET
+    from chip_smoke import FLEET, FLEET_CRASH, FLEET_GUARDBAND
     from repro_torch.sim import ExperimentConfig
     from repro_torch.sim.fleetsim import run_fleet_experiment
     from repro_torch.workloads import get_scenario
@@ -44,7 +86,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    cfg = ExperimentConfig(**dict(FLEET, duration_s=SECONDS)).with_engine(
+    cells = {"none": FLEET, "guardband": FLEET_GUARDBAND,
+             "machine-crash": FLEET_CRASH}
+    if args.turns:
+        turns(torch, cells)
+        return 0
+    cfg = ExperimentConfig(**dict(cells[args.fault_model],
+                                  duration_s=SECONDS)).with_engine(
         "fleet", backend="torch")
     reqs = get_scenario(cfg.scenario).generate(
         rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
@@ -70,7 +118,8 @@ def main() -> int:
                                 "cudaLaunchKernelExC"))
     periods = int(round(cfg.duration_s / cfg.idling_period_s))
     print(f"cell: {cfg.n_machines} machines x {cfg.duration_s:g} s, "
-          f"{periods} periods, {len(reqs)} requests")
+          f"fault model {cfg.fault_model}, {periods} periods, "
+          f"{len(reqs)} requests")
     print(f"profiled wall: {wall:.3f} s (profiler on)")
     print(f"kernel launches: {launches} ({launches / periods:.1f} per "
           f"period)")

@@ -65,6 +65,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    `Cluster.run` with each settler and a settle of each, timed in turns
    on the host's clock, beside the kernel's own time at N = 880 (CUDA graph, as in
    phase 2) and the launch floor.
+3c. Fault injection on both engines, each cell driven through the entry
+   points with the launch counts set to 0 just before it and read just
+   after. fleet-200x1h-guardband (phase 3's config and trace, guardband
+   faults at the reference's acceptance margin 0.012) and
+   fleet-200x1h-crash (machine crashes, mttf 1,800 s, reboot 30 s) run on
+   CUDA (failed cores reach the aging kernel as unstressed, two launches
+   a period) and on the numpy backend, held against each other as the
+   CPU tests hold them. event-22x60s-guardband is the reference's
+   `TestGuardbandAcceptance` pair (seed 3, 60 s, margin 0.012, linux and
+   proposed), run with the default numpy settler and again with the torch
+   settler on the card (one launch a period): with both, proposed must
+   fail fewer cores and keep higher availability than linux, and every
+   request must be accounted for (completed + failed + rejected + pending
+   == submitted).
 4. Llama-3-8B at full width (32 layers, bfloat16, random weights from
    seed 0) served by the port's `InferenceEngine` and `CoreManager`: 8
    requests of 128 to 1,024 prompt tokens and 32 new tokens each, 4
@@ -82,9 +96,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    the decode step has no kernel), and the same two holds of the kernel
    path against the plain path (`ssd_chunked`) follow.
 
-Phases 3, 3b and each serving phase set every kernel's launch count to
-0 just before their main run and read them all just after: a kernel of the path must have run
-exactly as often as the path calls it, and no other kernel at all.
+Phases 3, 3b, 3c and each serving phase set every kernel's launch count
+to 0 just before each main run and read them all just after: a kernel of
+the path must have run exactly as often as the path calls it, and no
+other kernel at all.
 
 The last two lines are one JSON object per kernel and the device line.
 Without CUDA, or without `src/repro_torch` beside this file, it prints
@@ -126,6 +141,24 @@ EVENT_FLEET_BOUNDS = {"completed": 0.10, "mean_latency_s": 0.10,
                       "p99_latency_s": 0.10, "p50_degradation": 0.15,
                       "p50_freq_cv": 0.10, "fleet_yearly_kgco2eq": 0.15,
                       "fleet_energy_kwh": 0.05}
+# phase 3c: fault injection. The fleet cells are FLEET under a fault
+# model; the event cell is the reference's TestGuardbandAcceptance pair.
+FLEET_GUARDBAND = dict(FLEET, fault_model="guardband",
+                       fault_opts=(("margin", 0.012),))
+FLEET_CRASH = dict(FLEET, fault_model="machine-crash")
+EVENT_GUARDBAND = dict(seed=3, duration_s=60.0, fault_model="guardband",
+                       fault_opts=(("margin", 0.012),))
+# torch/CUDA against numpy under faults, beside BOUNDS: crashes, stalls
+# and failed cores equal, availability within 1e-3 relative (the
+# reference's TestFleetEngineFaults::test_backends_agree_on_counts).
+AVAILABILITY_RTOL = 1e-3
+# Retries are the fluid request mass re-dispatched at each of some 400
+# crash onsets, summed in float32 on torch and float64 on numpy. The
+# reference's counts test allows 1 at 60 s; over 3,600 periods the
+# float32 queues drift from the float64 ones (fleet-200x1h's completed
+# by 1.4e-4 relative on an H100), and 200 machines x 600 s on the CPU
+# gave 29,748 against 29,741 (2.4e-4). So they are held at 1e-3 relative.
+RETRIES_RTOL = 1e-3
 # TestJaxBackend bound (reference tests/test_fleetstate.py) for one settle
 SETTLE_TOL = dict(rtol=2e-6, atol=1e-8)
 # the mid-run state settled by both settlers: run to T, settle at T + DT
@@ -667,7 +700,7 @@ def phase_fleet(torch, kernels):
         raise AssertionError("fleet result is not finite or has the "
                              "wrong shape")
     hold("[fleet] torch/cuda vs numpy", deltas(res, ref, BOUNDS), BOUNDS)
-    return launches
+    return launches, reqs
 
 
 def phase_event(torch, np, kernels, floor):
@@ -812,6 +845,132 @@ def phase_event(torch, np, kernels, floor):
         f"empty kernel of the same geometry {floor_us:.3f} us, bound "
         f"{bound_us:.4f} us (bytes)")
     return launches
+
+
+def conserved(r) -> bool:
+    """Every submitted request is completed, failed, rejected or pending."""
+    return (r.completed + r.failed_requests + r.rejected_requests
+            + r.pending_requests) == r.submitted
+
+
+def fault_line(tag, name, r, wall=None, machine_s=None) -> None:
+    speed = "" if wall is None else (
+        f"{wall:.2f} s wall, {machine_s / wall:.1f} machine-s/wall-s, ")
+    log(f"{tag} {name}: {speed}core_failures {r.core_failures}, "
+        f"machine_crashes {r.machine_crashes}, availability "
+        f"{r.availability!r}, retries {r.retries}, completed {r.completed} "
+        f"of {r.submitted} submitted (failed {r.failed_requests}, rejected "
+        f"{r.rejected_requests}, pending {r.pending_requests}), "
+        f"p99_latency_s {r.p99_latency_s!r}, fleet_yearly_kgco2eq "
+        f"{r.fleet_yearly_kgco2eq!r}")
+
+
+def phase_faults(torch, kernels, reqs):
+    """Phase 3c. `kernels`: the `CudaKernel` of every kernel of the port
+    (the fault paths launch the aging kernel only); `reqs`: phase 3's
+    trace. Returns the aging kernel's launches on each path."""
+    from repro_torch.sim import (Cluster, ExperimentConfig,
+                                 FleetAgingSettler, collect, run_experiment)
+    from repro_torch.sim.fleetsim import run_fleet_experiment
+    from repro_torch.workloads import get_scenario
+
+    def counted(path, expected, run):
+        for k in kernels:
+            k.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        if launches["aging_update"] != expected or any(
+                n for name, n in launches.items() if name != "aging_update"):
+            raise AssertionError(f"{path}: launches {launches}, expected "
+                                 f"{expected} of aging_update only")
+        return out, launches["aging_update"]
+
+    by_path = {}
+    for path, kw in (("fleet-200x1h-guardband", FLEET_GUARDBAND),
+                     ("fleet-200x1h-crash", FLEET_CRASH)):
+        cfg = ExperimentConfig(**kw).with_engine("fleet", backend="torch")
+        machine_s = cfg.n_machines * cfg.duration_s
+        periods = int(round(cfg.duration_s / cfg.idling_period_s))
+        t0 = time.perf_counter()
+        res, by_path[path] = counted(
+            path, 2 * periods,
+            lambda: run_fleet_experiment(cfg, requests=reqs))
+        wall_t = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = run_fleet_experiment(cfg.with_engine("fleet", backend="numpy"),
+                                   requests=reqs)
+        wall_n = time.perf_counter() - t0
+        tag = f"[faults] {path}"
+        fault_line(tag, "torch/cuda", res, wall_t, machine_s)
+        fault_line(tag, "numpy", ref, wall_n, machine_s)
+        if not all(math.isfinite(v) for v in (
+                res.mean_latency_s, res.p99_latency_s,
+                res.fleet_yearly_kgco2eq)) or not conserved(res):
+            raise AssertionError(f"{tag}: result not finite or requests "
+                                 f"not conserved")
+        if (res.core_failures, res.machine_crashes, res.stalls) != \
+                (ref.core_failures, ref.machine_crashes, ref.stalls):
+            raise AssertionError(f"{tag}: fault counts differ from numpy")
+        got = dict(deltas(res, ref, BOUNDS),
+                   availability=rel(res.availability, ref.availability),
+                   retries=rel(res.retries, ref.retries)
+                   if ref.retries else float(res.retries))
+        hold(f"{tag} torch/cuda vs numpy", got,
+             dict(BOUNDS, availability=AVAILABILITY_RTOL,
+                  retries=RETRIES_RTOL))
+        if path.endswith("guardband") and not res.core_failures:
+            raise AssertionError(f"{tag}: no core failed")
+        if path.endswith("crash") and not (res.machine_crashes
+                                           and res.retries):
+            raise AssertionError(f"{tag}: no crash or no retry")
+
+    path = "event-22x60s-guardband"
+    base = ExperimentConfig(**EVENT_GUARDBAND)
+    periods = int(round(base.duration_s / base.idling_period_s))
+    numpy_runs, torch_runs = {}, {}
+    for policy in ("linux", "proposed"):
+        cfg = base.with_policy(policy)
+        t0 = time.perf_counter()
+        numpy_runs[policy] = run_experiment(cfg)
+        fault_line(f"[faults] {path}", f"{policy}, numpy settler",
+                   numpy_runs[policy], time.perf_counter() - t0,
+                   cfg.n_machines * cfg.duration_s)
+    trace = get_scenario(base.scenario).generate(
+        rate_rps=base.rate_rps, duration_s=base.duration_s, seed=base.seed)
+
+    def torch_settled():
+        for policy in ("linux", "proposed"):
+            cfg = base.with_policy(policy)
+            cluster = Cluster(cfg)
+            cluster.fleet_settler = FleetAgingSettler(
+                [m.manager for m in cluster.machines], backend="torch",
+                device="cuda")
+            t0 = time.perf_counter()
+            cluster.run(trace, cfg.duration_s,
+                        sample_period_s=cfg.sample_period_s)
+            torch_runs[policy] = collect(cluster, cfg)
+            fault_line(f"[faults] {path}", f"{policy}, torch/cuda settler",
+                       torch_runs[policy], time.perf_counter() - t0,
+                       cfg.n_machines * cfg.duration_s)
+    _, by_path[path] = counted(path, 2 * periods, torch_settled)
+    for name, runs in (("numpy", numpy_runs), ("torch/cuda", torch_runs)):
+        linux, proposed = runs["linux"], runs["proposed"]
+        ok = (proposed.core_failures < linux.core_failures
+              and proposed.availability > linux.availability
+              and all(conserved(r) for r in runs.values()))
+        log(f"[faults] {path} {name} settler: proposed fails "
+            f"{proposed.core_failures} cores against linux's "
+            f"{linux.core_failures}, availability {proposed.availability:.4f}"
+            f" against {linux.availability:.4f}, requests conserved: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{path}: the acceptance pair does not "
+                                 f"hold with the {name} settler")
+    for policy in ("linux", "proposed"):
+        hold(f"[faults] {path} {policy} torch/cuda vs numpy settler",
+             deltas(torch_runs[policy], numpy_runs[policy], BOUNDS), BOUNDS)
+    return by_path
 
 
 def phase_serve(torch, np, serve, kernels, expected):
@@ -1009,6 +1168,7 @@ def _hold_f32(torch, cfg, prompts, tokens, tag):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         return fail(f"no src/repro_torch beside {Path(__file__).name}")
@@ -1035,10 +1195,12 @@ def main() -> int:
     aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS, floor)
     attention_rows = phase_attention_kernels(torch, np)
     ssd_row = phase_ssd_kernel(torch, np)
-    launches = phase_fleet(torch, (AGING,))
+    launches, reqs = phase_fleet(torch, (AGING,))
     event = phase_event(torch, np, every, floor)
     by_path = {"fleet-200x1h": launches["aging_update"],
-               "event-22x120s": event["aging_update"]}
+               "event-22x120s": event["aging_update"],
+               **phase_faults(torch, every, reqs)}
+    del reqs
     launches["aging_update"] = sum(by_path.values())
 
     def dense(cfg, iterations):
@@ -1080,6 +1242,7 @@ def main() -> int:
               "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:64",
               "launches": launches["ssd_scan"]}, **ssd_row),
     ]
+    log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ settler, `collect`) and the vectorized fleet engine, with their config,
 results and runner.
 
 Workloads come from `repro_torch.workloads` (`Request` is re-exported
-here for convenience); carbon accounting from `repro_torch.carbon`.
-Fault injection and telemetry join with ROADMAP A4 and A5.
+here for convenience); carbon accounting from `repro_torch.carbon`;
+fault injection from `repro_torch.faults`, on both engines. Telemetry
+joins with ROADMAP A5.
 """
 from repro_torch.sim.cluster import (Cluster, Machine, PromptInstance,
                                      TokenInstance)

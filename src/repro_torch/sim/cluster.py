@@ -15,11 +15,12 @@ fires `flow_completion` on the receiving host — the same structure
 splitwise-sim models. The fleet engine (`repro_torch.sim.fleetsim`)
 prices its GPU work with the same seven constants.
 
-The event loop is host numpy float64, bit-identical to the reference.
-The reference's fault layer (`FaultCoordinator`) and telemetry hooks are
-not ported yet: `Cluster` raises for a fault model other than "none"
-(ROADMAP A4) and for a telemetry hub (ROADMAP A5, telemetry), and never
-runs without them in their place.
+The event loop is host numpy float64, bit-identical to the reference,
+its fault layer (`FaultCoordinator`: injection, health-aware dispatch,
+retries with backoff, hedging, robustness accounting) included. The
+reference's telemetry hooks are not ported yet: `Cluster` raises for a
+telemetry hub (ROADMAP A5, telemetry), so `self.telemetry` is always
+None and the coordinator's telemetry pushes never fire.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.core import OVERSUBSCRIBED, CoreManager
+from repro_torch.faults import FaultView, get_fault_model
 from repro_torch.hardware.inventory import resolve_fleet
 from repro_torch.sim.config import ExperimentConfig
 from repro_torch.sim.events import EventQueue
@@ -358,25 +360,330 @@ class TokenInstance:
         self.iterating = False
 
 
+# -------------------- fault handling (retry/failover) ------------------- #
+#: dispatch attempts per request before it is counted failed/rejected
+MAX_RETRIES = 3
+#: exponential-backoff base: attempt k retries after BASE * 2**(k-1) s
+BACKOFF_BASE_S = 0.05
+#: a dispatched-but-not-started prefill older than this is hedged
+#: (pulled back and re-dispatched); started prefills are never stolen
+HEDGE_TIMEOUT_S = 10.0
+
+
+def _merge_intervals(
+        spans: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    """Merge overlapping [lo, hi) spans (degraded-window accounting)."""
+    if not spans:
+        return []
+    spans = sorted(spans)
+    out = [list(spans[0])]
+    for lo, hi in spans[1:]:
+        if lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return [(lo, hi) for lo, hi in out]
+
+
+class FaultCoordinator:
+    """Cluster-level fault orchestration: injection, degradation, recovery.
+
+    Built only when `cfg.fault_model != "none"` — with faults off the
+    cluster never touches this class and the hot path is bit-identical
+    to the faultless build.
+
+    Responsibilities:
+      * run each machine's `FaultModel.periodic` once per idling period
+        and apply its decisions (offline cores via
+        `CoreManager.fail_core`, transient stalls, crash/reboot);
+      * health-aware dispatch: route around down machines, re-dispatch
+        crash victims with bounded retry + exponential backoff, hedge
+        prefills stuck in queue past `HEDGE_TIMEOUT_S`;
+      * robustness accounting: capacity-based availability, degraded
+        windows, retry/failure counters, and the conservation invariant
+        completed + failed + rejected + pending == submitted.
+    """
+
+    def __init__(self, cluster: "Cluster", cfg: ExperimentConfig):
+        self.cluster = cluster
+        self.cfg = cfg
+        n = cfg.n_machines
+        # Per-machine model instances (may carry state, e.g. a pre-drawn
+        # next crash time) over per-machine fault RNG streams.
+        # Sequence-seeding with a salt keeps these streams disjoint from
+        # the manager (seed*1000+mid) and router (seed*1000+999) streams
+        # AND identical across policies — failure-count comparisons
+        # between policies reflect aging state, not RNG drift.
+        self.models = [get_fault_model(cfg.fault_model, **cfg.fault_options)
+                       for _ in range(n)]
+        self.rngs = [np.random.default_rng([cfg.seed, 0xFA, mid])
+                     for mid in range(n)]
+        self.views = [FaultView(m, rng, cfg.idling_period_s)
+                      for m, rng in zip(cluster.machines, self.rngs)]
+        # robustness counters
+        self.submitted = 0
+        self.retries = 0
+        self.hedges = 0
+        self.failed_requests = 0
+        self.rejected_requests = 0
+        self.core_failures = 0
+        self.machine_crashes = 0
+        self.stalls = 0
+        #: core-seconds of serving capacity lost to failures/reboots
+        self.lost_core_s = 0.0
+        self._degraded: list[tuple[float, float]] = []
+        # machine_id -> {id(rs): rs} of requests currently owned by that
+        # machine (prefilling or decoding there); a crash re-dispatches
+        # exactly these.
+        self.inflight: dict[int, dict[int, RequestState]] = {
+            mid: {} for mid in range(n)}
+        self.rs_loc: dict[int, int] = {}
+        # (machine_id, core) -> expiry time of an active transient stall
+        self._stall_until: dict[tuple[int, int], float] = {}
+
+    # ------------------------- booking ------------------------------- #
+    def _book(self, rs: RequestState, machine_id: int) -> None:
+        self.inflight[machine_id][id(rs)] = rs
+        self.rs_loc[id(rs)] = machine_id
+
+    def _unbook(self, rs: RequestState) -> None:
+        mid = self.rs_loc.pop(id(rs), None)
+        if mid is not None:
+            self.inflight[mid].pop(id(rs), None)
+
+    # ------------------------- dispatch ------------------------------ #
+    def submit(self, rs: RequestState) -> None:
+        self.submitted += 1
+        self._dispatch_prompt(rs)
+
+    def _dispatch_prompt(self, rs: RequestState) -> None:
+        c = self.cluster
+        pis = c.prompt_instances
+        up = [i for i, pi in enumerate(pis) if pi.machine.up]
+        if not up:
+            self._retry(rs, "no-prompt-machine-up")
+            return
+        c.pending_request = rs.req
+        idx = c._route(c.router.select_prompt, len(pis), "prompt")
+        if not pis[idx].machine.up:
+            # Health-aware failover: the router chose a down machine;
+            # redirect to the least-loaded live prompt instance.
+            depths = c.fleet.prompt_depths()
+            idx = min(up, key=lambda i: depths[i])
+        pi = pis[idx]
+        self._book(rs, pi.machine.machine_id)
+        rs.admitted = True
+        pi.enqueue(rs, c._prefill_done)
+        att = rs.attempts
+        c.queue.schedule_in(HEDGE_TIMEOUT_S,
+                            lambda: self._hedge_check(rs, att, idx))
+
+    def _hedge_check(self, rs: RequestState, att: int, idx: int) -> None:
+        """Fires HEDGE_TIMEOUT_S after a dispatch: a prefill still sitting
+        in the queue (never started) is pulled back and re-dispatched
+        immediately. Started prefills are never stolen, so a request is
+        never served twice."""
+        if (rs.t_done >= 0.0 or rs.failed or rs.attempts != att
+                or rs.t_first_token >= 0.0):
+            return
+        pi = self.cluster.prompt_instances[idx]
+        for entry in pi.queue:
+            if entry[0] is rs:
+                pi.queue.remove(entry)
+                self._unbook(rs)
+                self.hedges += 1
+                self._retry(rs, "hedge-timeout", immediate=True)
+                return
+
+    def _retry(self, rs: RequestState, cause: str,
+               immediate: bool = False) -> None:
+        rs.attempts += 1
+        if rs.attempts > MAX_RETRIES:
+            rs.failed = True
+            if rs.admitted:
+                self.failed_requests += 1
+            else:
+                self.rejected_requests += 1
+            return
+        self.retries += 1
+        # A retry restarts from the prompt phase: decode progress on a
+        # crashed machine is gone with its KV cache.
+        rs.remaining = rs.req.output_tokens
+        rs.t_first_token = -1.0
+        delay = 0.0 if immediate else BACKOFF_BASE_S * 2.0 ** (rs.attempts - 1)
+        self.cluster.queue.schedule_in(
+            delay, lambda: self._dispatch_prompt(rs))
+        tel = self.cluster.telemetry
+        if tel is not None:
+            tel.push({"kind": "fault_retry", "t": self.cluster.queue.now,
+                      "cause": cause, "attempt": rs.attempts})
+
+    def prefill_done(self, rs: RequestState) -> None:
+        c = self.cluster
+        self._unbook(rs)
+        tis = c.token_instances
+        up = [i for i, ti in enumerate(tis) if ti.machine.up]
+        if not up:
+            self._retry(rs, "no-token-machine-up")
+            return
+        c.pending_request = rs.req
+        idx = c._route(c.router.select_token, len(tis), "token")
+        if not tis[idx].machine.up:
+            loads = c.fleet.token_loads()
+            idx = min(up, key=lambda i: loads[i])
+        ti = tis[idx]
+        self._book(rs, ti.machine.machine_id)
+        flow_s = rs.req.input_tokens * KV_BYTES_PER_TOKEN / IB_LINK_BW_BPS
+        c.queue.schedule_in(flow_s, lambda: self._kv_arrive(ti, rs))
+
+    def _kv_arrive(self, ti: TokenInstance, rs: RequestState) -> None:
+        mid = ti.machine.machine_id
+        if self.inflight[mid].get(id(rs)) is not rs:
+            return  # destination crashed in transit; already re-dispatched
+        if not ti.machine.up:
+            self._unbook(rs)
+            self._retry(rs, "token-machine-down")
+            return
+        ti.receive_kv(rs)
+
+    def request_done(self, rs: RequestState) -> None:
+        self._unbook(rs)
+
+    # ------------------------- injection ----------------------------- #
+    def tick(self, now: float) -> None:
+        """Once per idling period: expire stalls, then let each machine's
+        fault model decide what breaks."""
+        if self._stall_until:
+            for key in [k for k, t in self._stall_until.items()
+                        if t <= now]:
+                del self._stall_until[key]
+                m = self.cluster.machines[key[0]]
+                if m.up:
+                    m.manager.clear_core_slowdown(key[1], now)
+        for mid, model in enumerate(self.models):
+            dec = model.periodic(self.views[mid])
+            if not dec:
+                continue
+            machine = self.cluster.machines[mid]
+            if dec.crash:
+                if machine.up:
+                    self._crash(machine, now, dec.reboot_s)
+                continue
+            for core in dec.fail_cores:
+                self._fail_core(machine, int(core), now)
+            for core in dec.stall_cores:
+                self._stall(machine, int(core), now,
+                            dec.stall_factor, dec.stall_s)
+
+    def _fail_core(self, machine: Machine, core: int, now: float) -> None:
+        mgr = machine.manager
+        if not machine.up or mgr.failed.item(core):
+            return
+        mgr.fail_core(core, now)
+        self.core_failures += 1
+        dur = self.cfg.duration_s
+        self.lost_core_s += max(dur - now, 0.0)
+        self._degraded.append(
+            (now, min(now + self.cfg.idling_period_s, dur)))
+        tel = self.cluster.telemetry
+        if tel is not None:
+            tel.push({"kind": "core_failure", "t": now,
+                      "machine": machine.machine_id, "core": core})
+
+    def _crash(self, machine: Machine, now: float, reboot_s: float) -> None:
+        mid = machine.machine_id
+        victims = list(self.inflight[mid].values())
+        for rs in victims:
+            self.rs_loc.pop(id(rs), None)
+        self.inflight[mid].clear()
+        for key in [k for k in self._stall_until if k[0] == mid]:
+            del self._stall_until[key]
+        machine.crash(now)
+        c = self.cluster
+        n_p = self.cfg.n_prompt
+        if mid < n_p:
+            c.prompt_instances[mid].reset()
+        else:
+            c.token_instances[mid - n_p].reset()
+        self.machine_crashes += 1
+        dur = self.cfg.duration_s
+        surviving = machine.manager.num_cores \
+            - int(machine.manager.failed.sum())
+        self.lost_core_s += surviving * min(reboot_s, max(dur - now, 0.0))
+        self._degraded.append((now, min(now + reboot_s, dur)))
+        c.queue.schedule_in(reboot_s, lambda: self._reboot(machine))
+        for rs in victims:
+            self._retry(rs, "machine-crash")
+        tel = c.telemetry
+        if tel is not None:
+            tel.push({"kind": "machine_crash", "t": now, "machine": mid,
+                      "reboot_s": reboot_s, "victims": len(victims)})
+
+    def _reboot(self, machine: Machine) -> None:
+        now = self.cluster.queue.now
+        machine.reboot(now)
+        tel = self.cluster.telemetry
+        if tel is not None:
+            tel.push({"kind": "machine_reboot", "t": now,
+                      "machine": machine.machine_id})
+
+    def _stall(self, machine: Machine, core: int, now: float,
+               factor: float, stall_s: float) -> None:
+        mgr = machine.manager
+        if not machine.up or mgr.failed.item(core):
+            return
+        mgr.set_core_slowdown(core, now, factor)
+        self.stalls += 1
+        key = (machine.machine_id, core)
+        self._stall_until[key] = max(
+            self._stall_until.get(key, 0.0), now + stall_s)
+        self._degraded.append(
+            (now, min(now + stall_s, self.cfg.duration_s)))
+
+    # ------------------------- accounting ---------------------------- #
+    def robustness(self, elapsed_s: float) -> dict:
+        """Robustness scalars for `ExperimentResult` (keys match field
+        names; `pending_requests` is derived by the caller)."""
+        cfg = self.cfg
+        n_cores = (cfg.n_machines * cfg.num_cores
+                   if self.cluster.inventory is None
+                   else self.cluster.inventory.total_cores)
+        total = n_cores * max(elapsed_s, 1e-9)
+        widths = [hi - lo for lo, hi in _merge_intervals(self._degraded)]
+        return {
+            "availability": 1.0 - min(self.lost_core_s / total, 1.0),
+            "core_failures": self.core_failures,
+            "machine_crashes": self.machine_crashes,
+            "stalls": self.stalls,
+            "retries": self.retries,
+            "failed_requests": self.failed_requests,
+            "rejected_requests": self.rejected_requests,
+            "submitted": self.submitted,
+            "p99_degraded_window_s": (
+                float(np.percentile(np.asarray(widths), 99))
+                if widths else 0.0),
+        }
+
+
 class Cluster:
     """22-machine phase-splitting cluster + cluster-level scheduler."""
 
     def __init__(self, cfg: ExperimentConfig, telemetry=None):
-        if cfg.fault_model != "none":
-            raise NotImplementedError(
-                f"fault injection (fault_model={cfg.fault_model!r}) is not "
-                f"ported yet: ROADMAP A4 (faults)")
         if telemetry is not None:
             raise NotImplementedError(
                 "Cluster(telemetry=...): telemetry is not ported yet: "
                 "ROADMAP A5 (telemetry)")
         self.cfg = cfg
         self.queue = EventQueue()
+        # The reference's telemetry sink; None until telemetry is ported
+        # (the fault layer reads it before each push).
+        self.telemetry = None
         # One id stream per simulation (not per process): concurrent
         # clusters can't interleave ids, while within this cluster ids
         # stay globally ordered by spawn time — the property the
         # manager's oversubscription FIFO relies on.
         self.task_ids = TaskIdAllocator()
+        faults_on = cfg.fault_model != "none"
         # Heterogeneous fleets (`repro_torch.hardware`): None on the
         # uniform default — every machine then builds with the historical
         # homogeneous arguments, bit-exactly.
@@ -384,6 +691,7 @@ class Cluster:
                                        cfg.n_machines)
         self.machines = [
             Machine(i, cfg, self.queue, self.task_ids,
+                    track_inflight=faults_on,
                     hw=(None if self.inventory is None
                         else self.inventory.skus[i]))
             for i in range(cfg.n_machines)
@@ -419,6 +727,10 @@ class Cluster:
         else:
             self.fleet_settler = GroupedAgingSettler(
                 [m.manager for m in self.machines])
+        # Fault layer: None with the default "none" model — every
+        # faultless code path below checks `self.faults is not None`
+        # exactly once and otherwise runs the historical bit-exact logic.
+        self.faults = FaultCoordinator(self, cfg) if faults_on else None
 
     # ----------------------- scheduling policy ------------------------ #
     def _route(self, select, n: int, kind: str) -> int:
@@ -432,12 +744,18 @@ class Cluster:
         rs = RequestState(req, remaining=req.output_tokens,
                           t_arrival=self.queue.now)
         self.pending_request = req
+        if self.faults is not None:
+            self.faults.submit(rs)
+            return
         pi = self.prompt_instances[self._route(
             self.router.select_prompt, len(self.prompt_instances), "prompt")]
         pi.enqueue(rs, self._prefill_done)
 
     def _prefill_done(self, rs: RequestState) -> None:
         self.pending_request = rs.req
+        if self.faults is not None:
+            self.faults.prefill_done(rs)
+            return
         # KV-cache flow to the router-chosen token instance over IB.
         ti = self.token_instances[self._route(
             self.router.select_token, len(self.token_instances), "token")]
@@ -448,6 +766,8 @@ class Cluster:
         self.completed_count += 1
         self.latency.observe(rs.t_done - rs.t_arrival)
         self.completed.append(rs)
+        if self.faults is not None:
+            self.faults.request_done(rs)
 
     # --------------------------- main loop ----------------------------- #
     def run(self, requests: list[Request], duration_s: float,
@@ -465,6 +785,8 @@ class Cluster:
             self.fleet_settler.settle(self.queue.now)
             for m in self.machines:
                 m.manager.periodic(self.queue.now)
+            if self.faults is not None:
+                self.faults.tick(self.queue.now)
             t[0] += period
             if t[0] <= duration_s:
                 self.queue.schedule_in(period, periodic)

@@ -30,13 +30,8 @@ from repro_torch.power.registry import canonical_power_model_name
 from repro_torch.workloads import canonical_scenario_name
 
 from repro_torch.core.policies import canonical_policy_name
+from repro_torch.faults.registry import canonical_fault_model_name
 from repro_torch.sim.routing import canonical_router_name
-
-# The fault-model registry is not ported yet (ROADMAP A4). Its
-# canonical-name helper is the shared registry normalizer, so the port
-# takes that normalizer directly.
-from repro_torch.registry import (
-    canonical_name as canonical_fault_model_name)
 
 
 def _deep_freeze(value):

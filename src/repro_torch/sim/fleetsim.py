@@ -23,10 +23,13 @@ Two backends share the same physics:
 
 ``backend="auto"`` resolves to torch.
 
-Not ported yet, and refused with NotImplementedError: fault injection
-(`fault_model != "none"`), checkpoints (`checkpoint_dir`) and, on the
-torch backend, mixed-SKU fleets (ROADMAP A4 and A6). The numpy backend
-runs mixed fleets as the reference does.
+Both backends run the three built-in fault models the reference
+vectorizes (`_FleetFaults`: guardband, machine-crash, transient-stall);
+on the torch backend failed cores join the gated mask the aging kernel
+settles with, and the guardband crossing reads the dVth it returns. Not
+ported yet, and refused with NotImplementedError: checkpoints
+(`checkpoint_dir`) and, on the torch backend, mixed-SKU fleets (ROADMAP
+A6). The numpy backend runs mixed fleets as the reference does.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import aging, temperature, variation
+from repro_torch.faults import get_fault_model
 from repro_torch.hardware.inventory import resolve_fleet
 from repro_torch.kernels.aging_update.ops import advance_fleet
 from repro_torch.power.residency import StateResidency
@@ -48,6 +52,7 @@ from repro_torch.sim.cluster import (
     MAX_DECODE_BATCH,
     PREFILL_BASE_S,
     PREFILL_PER_TOKEN_S,
+    _merge_intervals,
 )
 from repro_torch.sim.config import ExperimentConfig
 from repro_torch.sim.results import ExperimentResult
@@ -325,6 +330,182 @@ def _apply_gating(xp, corr, gated, busy_n, dvth, failed=None):
     return (gated | gate_new) & ~wake
 
 
+def _redistribute_queues(xp, q, onset, up, P):
+    """Crash onset: move a down machine's fluid queue mass to the live
+    machines of its serving group — the fluid analog of the event
+    engine's re-dispatch — and return (q', re-dispatched request mass).
+    `onset` is the per-machine crash-onset mask for this macro period,
+    `up` the per-machine up-fraction column."""
+    (pq_s, pq_n, pq_out, d_batch, d_tokens, d_pend, d_pend_tok,
+     cpu_backlog) = q
+    live = (up > 0.5) & ~onset
+
+    def move(col, on, upm):
+        lost = xp.where(on, col, 0.0)
+        tot = xp.sum(lost)
+        n_up = xp.sum(upm)
+        share = xp.where(upm, tot / xp.maximum(n_up, 1), 0.0)
+        # nowhere to go (whole group down): keep the mass in place
+        return xp.where(n_up > 0, col - lost + share, col)
+
+    on_p, on_t = onset[:P], onset[P:]
+    up_p, up_t = live[:P], live[P:]
+    retried = (xp.sum(xp.where(on_p, pq_n, 0.0))
+               + xp.sum(xp.where(on_t, d_batch + d_pend, 0.0)))
+    q2 = (move(pq_s, on_p, up_p), move(pq_n, on_p, up_p),
+          move(pq_out, on_p, up_p), move(d_batch, on_t, up_t),
+          move(d_tokens, on_t, up_t), move(d_pend, on_t, up_t),
+          move(d_pend_tok, on_t, up_t), move(cpu_backlog, onset, live))
+    return q2, retried
+
+
+class _FleetFaults:
+    """Vectorized fault layer for the fleet engine (`repro_torch.faults`).
+
+    The event engine applies fault decisions per machine per tick; the
+    fleet surrogate applies the same three built-in models as capacity
+    columns and masks:
+
+      machine-crash    — the crash/reboot timeline is *precomputed* from
+                         the same per-machine RNG streams
+                         (`default_rng([seed, 0xFA, mid])`, Exp(mttf)
+                         inter-arrivals): per-macro up-fraction columns
+                         scale each machine's CPU capacity, and queue
+                         mass is redistributed to live machines at each
+                         crash onset (fluid re-dispatch).
+      transient-stall  — onsets replayed from the same streams (two
+                         draws per machine per period, like the event
+                         model) into per-macro capacity multipliers:
+                         one core at `slowdown` x speed for `stall_s`.
+      guardband        — dynamic (depends on the evolving aging state):
+                         each core draws an Exp(1) failure threshold up
+                         front; per macro the cumulative hazard
+                         `hazard_per_s * period * max(over, 0)`
+                         integrates in the macro loop and a core fails
+                         when it crosses its threshold (inverse-CDF
+                         sampling of the first failure under the
+                         time-varying hazard — same hazard law as the
+                         event model, without per-tick uniforms).
+                         Failed cores leave the active set permanently
+                         and freeze (like DEEP_IDLE parking).
+
+    What stays approximate: GPU queues of a down machine keep draining
+    (capacity loss is modeled in the CPU layer only), and failures land
+    at macro boundaries. Engine parity under faults is therefore NOT
+    pinned — fault experiments at fleet scale are surrogate estimates,
+    the event engine is the reference.
+    """
+
+    def __init__(self, cfg: ExperimentConfig, shape: _Shape):
+        model = get_fault_model(cfg.fault_model, **cfg.fault_options)
+        if model.name not in ("guardband", "machine-crash",
+                              "transient-stall"):
+            raise ValueError(
+                f"fleet engine cannot vectorize fault model "
+                f"{model.name!r}; run it under engine='event'")
+        M, N = shape.n_machines, shape.num_cores
+        # per-machine core counts (ragged fleets; uniform otherwise)
+        counts = ([N] * M if shape.core_counts is None
+                  else list(shape.core_counts))
+        self.period = shape.steps_per_period * shape.dt_s
+        self.kind = model.name
+        # neutral columns; the matching branch below fills its own
+        self.up_frac = np.ones((shape.n_macro, M))
+        self.onset = np.zeros((shape.n_macro, M), dtype=bool)
+        self.cap_mult = np.ones((shape.n_macro, M))
+        self.guard = None
+        self.thresh = None
+        self.n_crashes = 0
+        self.n_stalls = 0
+        self.static_lost_core_s = 0.0
+        self.windows: list[tuple[float, float]] = []
+        dur = shape.duration_s
+        rngs = [np.random.default_rng([cfg.seed, 0xFA, mid])
+                for mid in range(M)]
+        if self.kind == "guardband":
+            self.guard = (model.margin, model.hazard_per_s)
+            if shape.core_counts is None:
+                self.max_failed_n = float(int(model.max_failed_frac * N))
+                self.thresh = np.stack([r.exponential(1.0, size=N)
+                                        for r in rngs])
+            else:
+                # per-machine failure budgets; padded lanes get an
+                # infinite threshold so they can never fail
+                self.max_failed_n = np.array(
+                    [float(int(model.max_failed_frac * n))
+                     for n in counts])
+                self.thresh = np.full((M, N), np.inf)
+                for mid, (r, n) in enumerate(zip(rngs, counts)):
+                    self.thresh[mid, :n] = r.exponential(1.0, size=n)
+        elif self.kind == "machine-crash":
+            for mid, rng in enumerate(rngs):
+                t = float(rng.exponential(model.mttf_s))
+                while t < dur:
+                    self.n_crashes += 1
+                    down_until = t + model.reboot_s
+                    k0 = min(int(t / self.period), shape.n_macro - 1)
+                    self.onset[k0, mid] = True
+                    k1 = min(int(min(down_until, dur) / self.period),
+                             shape.n_macro - 1)
+                    for k in range(k0, k1 + 1):
+                        lo = max(t, k * self.period)
+                        hi = min(down_until, (k + 1) * self.period, dur)
+                        if hi > lo:
+                            self.up_frac[k, mid] -= (hi - lo) / self.period
+                    self.static_lost_core_s += counts[mid] \
+                        * (min(down_until, dur) - t)
+                    self.windows.append((t, min(down_until, dur)))
+                    t = down_until + float(rng.exponential(model.mttf_s))
+        else:   # transient-stall
+            p = -np.expm1(-model.rate_per_s * self.period)
+            for mid, rng in enumerate(rngs):
+                slow_loss = (1.0 - model.slowdown) / counts[mid]
+                for k in range(shape.n_macro):
+                    u = float(rng.random())
+                    rng.integers(N)      # core id (capacity-aggregated)
+                    if u >= p:
+                        continue
+                    self.n_stalls += 1
+                    t0 = (k + 1) * self.period
+                    t1 = min(t0 + model.stall_s, dur)
+                    k1 = min(int(t1 / self.period), shape.n_macro - 1)
+                    for kk in range(k + 1, k1 + 1):
+                        lo = max(t0, kk * self.period)
+                        hi = min(t1, (kk + 1) * self.period)
+                        if hi > lo:
+                            self.cap_mult[kk, mid] -= \
+                                (hi - lo) / self.period * slow_loss
+                    if t1 > t0:
+                        self.windows.append((t0, t1))
+
+    def robustness(self, state, completed: int, submitted: int) -> dict:
+        """Fleet-side robustness scalars (same keys the event engine's
+        `FaultCoordinator.robustness` produces)."""
+        sh_lost = float(state.get("lost_core_s", 0.0))
+        lost = sh_lost + self.static_lost_core_s
+        core_failures = (int(state["failed"].sum())
+                         if self.guard is not None else 0)
+        widths = [hi - lo for lo, hi in _merge_intervals(self.windows)]
+        if self.guard is not None and core_failures:
+            # failures land at macro boundaries; each degrades the
+            # machine for ~one re-sizing period
+            widths.append(self.period)
+        return {
+            "core_failures": core_failures,
+            "machine_crashes": self.n_crashes,
+            "stalls": self.n_stalls,
+            "retries": int(round(float(state.get("retried", 0.0)))),
+            "failed_requests": 0,
+            "rejected_requests": 0,
+            "submitted": submitted,
+            "pending_requests": max(submitted - completed, 0),
+            "p99_degraded_window_s": (
+                float(np.percentile(np.asarray(widths), 99))
+                if widths else 0.0),
+            "_lost_core_s": lost,
+        }
+
+
 def _derived(xp, shape: _Shape, f0, dvth, gated, headroom):
     """Per-period derived quantities: settled per-core speeds and the
     per-machine active-core mean speed used by the fluid layers."""
@@ -447,24 +628,53 @@ def _gate_correction_torch(shape: _Shape, active_n, u, ov, dirty: bool,
     return corr
 
 
-def _apply_gating_torch(corr, gated, busy_n, dvth):
-    """`_apply_gating` on tensors (no failed cores). The ranks use stable
-    sorts: at t = 0 every dVth is 0 and every key ties, and jax's argsort
-    is stable too."""
-    active = ~gated
+def _rank(key):
+    """Each entry's rank along the core axis in ascending order of `key`:
+    a double argsort, both stable (at t = 0 every dVth is 0 and every key
+    ties, and jax's argsort is stable too)."""
+    return torch.argsort(torch.argsort(key, dim=1, stable=True), dim=1,
+                         stable=True)
+
+
+def _apply_gating_torch(corr, gated, busy_n, dvth, failed=None):
+    """`_apply_gating` on tensors. `failed` (guardband faults) excludes
+    permanently offlined cores from both sides; `None` issues exactly the
+    faultless ops."""
+    active = ~gated if failed is None else ~gated & ~failed
+    wakeable = gated if failed is None else gated & ~failed
     eligible = active.sum(dim=1) - busy_n
     k_gate = torch.minimum(torch.clamp(corr, min=0.0),
                            torch.clamp(eligible, min=0.0))
-    key = torch.where(active, dvth, -np.inf)
-    rank_g = torch.argsort(torch.argsort(-key, dim=1, stable=True), dim=1,
-                           stable=True)
-    gate_new = rank_g < k_gate[:, None]
-    k_wake = torch.minimum(torch.clamp(-corr, min=0.0), gated.sum(dim=1))
-    keyw = torch.where(gated, dvth, np.inf)
-    rank_w = torch.argsort(torch.argsort(keyw, dim=1, stable=True), dim=1,
-                           stable=True)
-    wake = rank_w < k_wake[:, None]
+    gate_new = _rank(-torch.where(active, dvth, -np.inf)) < k_gate[:, None]
+    k_wake = torch.minimum(torch.clamp(-corr, min=0.0), wakeable.sum(dim=1))
+    wake = _rank(torch.where(wakeable, dvth, np.inf)) < k_wake[:, None]
     return (gated | gate_new) & ~wake
+
+
+def _redistribute_queues_torch(q, onset, up, P):
+    """`_redistribute_queues` on tensors: at a crash onset, a down
+    machine's fluid queue mass moves to the live machines of its serving
+    group. Returns (q', re-dispatched request mass as a 0-dim tensor)."""
+    (pq_s, pq_n, pq_out, d_batch, d_tokens, d_pend, d_pend_tok,
+     cpu_backlog) = q
+    live = (up > 0.5) & ~onset
+
+    def move(col, on, upm):
+        lost = torch.where(on, col, 0.0)
+        n_up = upm.sum()
+        share = torch.where(upm, lost.sum() / torch.clamp(n_up, min=1), 0.0)
+        # nowhere to go (whole group down): keep the mass in place
+        return torch.where(n_up > 0, col - lost + share, col)
+
+    on_p, on_t = onset[:P], onset[P:]
+    up_p, up_t = live[:P], live[P:]
+    retried = (torch.where(on_p, pq_n, 0.0).sum()
+               + torch.where(on_t, d_batch + d_pend, 0.0).sum())
+    q2 = (move(pq_s, on_p, up_p), move(pq_n, on_p, up_p),
+          move(pq_out, on_p, up_p), move(d_batch, on_t, up_t),
+          move(d_tokens, on_t, up_t), move(d_pend, on_t, up_t),
+          move(d_pend_tok, on_t, up_t), move(cpu_backlog, onset, live))
+    return q2, retried
 
 
 # Layout of the torch state. The float columns of `_initial_state` are
@@ -479,6 +689,9 @@ _MW_KEYS = ("mw_cnt", "mw_wait", "mw_iter", "mw_cpuw", "mw_sp", "mw_st",
 _RES_KEYS = ("res_busy", "res_idle", "res_gated", "res_fbusy")
 _QUEUE_KEYS = ("pq_s", "pq_n", "pq_out", "d_batch", "d_tokens", "d_pend",
                "d_pend_tok", "cpu_backlog")
+# the fault layer's float columns, present only under a fault model
+# (`cum_haz`, with the bool `failed`, under guardband only)
+_FAULT_KEYS = ("lost_core_s", "retried", "cum_haz")
 
 
 def state_from_numpy(state: dict, device="cpu") -> dict:
@@ -489,13 +702,16 @@ def state_from_numpy(state: dict, device="cpu") -> dict:
         return torch.tensor(np.asarray(x), dtype=torch.float32,
                             device=device)
 
-    out = {k: f32(state[k]) for k in _F32_KEYS}
+    out = {k: f32(state[k]) for k in _F32_KEYS + _FAULT_KEYS if k in state}
     out["mw"] = f32(np.stack([state[k] for k in _MW_KEYS]))
     out["res"] = f32(np.stack([state[k] for k in _RES_KEYS]))
     out["gated"] = torch.tensor(np.asarray(state["gated"]),
                                 dtype=torch.bool, device=device)
     out["idle_hist"] = torch.tensor(np.asarray(state["idle_hist"]),
                                     dtype=torch.int64, device=device)
+    if "failed" in state:
+        out["failed"] = torch.tensor(np.asarray(state["failed"]),
+                                     dtype=torch.bool, device=device)
     out["macro"] = int(state["macro"])
     return out
 
@@ -506,10 +722,13 @@ def state_to_numpy(tstate: dict) -> dict:
     def host(t, dtype):
         return t.detach().cpu().numpy().astype(dtype)
 
-    s = {k: host(tstate[k], np.float64) for k in _F32_KEYS}
+    s = {k: host(tstate[k], np.float64) for k in _F32_KEYS + _FAULT_KEYS
+         if k in tstate}
     s.update(zip(_MW_KEYS, host(tstate["mw"], np.float64)))
     s.update(zip(_RES_KEYS, host(tstate["res"], np.float64)))
     s["gated"] = host(tstate["gated"], bool)
+    if "failed" in tstate:
+        s["failed"] = host(tstate["failed"], bool)
     s["idle_hist"] = host(tstate["idle_hist"], np.int64)
     s["macro"] = np.asarray(tstate["macro"], dtype=np.int64)
     return s
@@ -543,10 +762,6 @@ class FleetEngine:
         unknown = set(opts) - {"dt_s", "backend", "device"}
         if unknown:
             raise ValueError(f"unknown engine_opts {sorted(unknown)}")
-        if cfg.fault_model != "none":
-            raise NotImplementedError(
-                f"fault injection (fault_model={cfg.fault_model!r}) is not "
-                f"ported yet: ROADMAP A4 (faults)")
         self.cfg = cfg
         self.backend = _resolve_backend(str(opts.get("backend", "auto")))
         self.device = None
@@ -622,6 +837,21 @@ class FleetEngine:
             self._n_vec = np.asarray(core_counts, dtype=np.float64)
         self._carbon_gate = self._resolve_carbon_gate(cfg)
         self.state = _initial_state(self.shape)
+        # Fault layer (None with the default "none" model — the state
+        # dict and physics stay exactly the pre-fault ones, so faultless
+        # runs are bit-identical on both backends).
+        self._faults = (_FleetFaults(cfg, self.shape)
+                        if cfg.fault_model != "none" else None)
+        if self._faults is not None:
+            self.shape.wait_cap_s = cfg.duration_s
+            self.state["lost_core_s"] = np.zeros(())
+            self.state["retried"] = np.zeros(())
+            if self._faults.guard is not None:
+                self.state["failed"] = np.zeros(
+                    (self.shape.n_machines, self.shape.num_cores),
+                    dtype=bool)
+                self.state["cum_haz"] = np.zeros(
+                    (self.shape.n_machines, self.shape.num_cores))
 
     @staticmethod
     def _resolve_carbon_gate(cfg: ExperimentConfig):
@@ -686,8 +916,10 @@ class FleetEngine:
     def _run_numpy(self, arr: np.ndarray, start_macro: int) -> None:
         sh, st = self.shape, self.state
         xp = np
+        P = sh.n_prompt
         spp = sh.steps_per_period
         g_fn = self._carbon_gate[0].g_per_kwh if self._carbon_gate else None
+        fx = self._faults
         pad = self._pad
         # per-machine core counts: the scalar num_cores on uniform
         # fleets (identical arithmetic to the pre-hardware engine), a
@@ -695,9 +927,34 @@ class FleetEngine:
         n_vec = sh.num_cores if pad is None else self._n_vec
         for k in range(start_macro, sh.n_macro):
             gated_eff = st["gated"] if pad is None else st["gated"] | pad
+            if fx is not None:
+                if "failed" in st:
+                    gated_eff = gated_eff | st["failed"]
+                if fx.onset[k].any():
+                    q0 = (st["pq_s"], st["pq_n"], st["pq_out"],
+                          st["d_batch"], st["d_tokens"], st["d_pend"],
+                          st["d_pend_tok"], st["cpu_backlog"])
+                    q0, retried = _redistribute_queues(
+                        xp, q0, fx.onset[k], fx.up_frac[k], P)
+                    (st["pq_s"], st["pq_n"], st["pq_out"], st["d_batch"],
+                     st["d_tokens"], st["d_pend"], st["d_pend_tok"],
+                     st["cpu_backlog"]) = q0
+                    st["retried"] = st["retried"] + retried
             f, sp, spd_t, sm, active_n = _derived(
                 xp, sh, self.f0, st["dvth"], gated_eff,
                 self.params.headroom)
+            if fx is not None:
+                # capacity columns: stalls scale speed, crashes scale
+                # the live core count
+                sm = sm * fx.cap_mult[k]
+                active_n = active_n * fx.up_frac[k]
+                # a machine with no live cores has zero capacity (via
+                # active_n) but must keep a finite nominal speed for the
+                # 1/speed bookkeeping terms
+                f_all = f.mean(axis=1) if pad is None \
+                    else (f * ~pad).sum(axis=1) / n_vec
+                sm = xp.where(active_n > 0, sm, f_all)
+                sp, spd_t = sm[:P], sm[P:]
             dyn = (sp, spd_t, sm, active_n)
             q = (st["pq_s"], st["pq_n"], st["pq_out"], st["d_batch"],
                  st["d_tokens"], st["d_pend"], st["d_pend_tok"],
@@ -741,6 +998,22 @@ class FleetEngine:
             st["dvth"] = _settle_aging(sh, st["dvth"], gated_eff,
                                        st["busy_s"], self._advance_numpy)
             st["busy_s"][:] = 0.0
+            if fx is not None and fx.guard is not None:
+                margin, hazard = fx.guard
+                over = (st["dvth"] / self.params.headroom
+                        - margin) / margin
+                haz = hazard * fx.period * np.maximum(over, 0.0)
+                st["cum_haz"] = st["cum_haz"] + np.where(
+                    st["failed"], 0.0, haz)
+                cand = (st["cum_haz"] >= fx.thresh) & ~st["failed"]
+                allowed = np.maximum(
+                    fx.max_failed_n - st["failed"].sum(axis=1), 0.0)
+                key = np.where(cand, st["cum_haz"] - fx.thresh, -np.inf)
+                rank = np.argsort(np.argsort(-key, axis=1), axis=1)
+                st["failed"] = st["failed"] | (
+                    cand & (rank < allowed[:, None]))
+                st["lost_core_s"] = (st["lost_core_s"]
+                                     + st["failed"].sum() * fx.period)
             idle_norm = (active_n - u - ov) / n_vec
             bins = np.clip(((idle_norm + 1.0) * 0.5
                             * (_IDLE_BINS - 1)).astype(np.int64),
@@ -754,7 +1027,10 @@ class FleetEngine:
                                         carbon, n_vec=self._n_vec)
                 # padded lanes behave like permanently failed cores:
                 # never gateable, never wakeable
-                fail_eff = pad
+                fail_eff = st.get("failed")
+                if pad is not None:
+                    fail_eff = pad if fail_eff is None \
+                        else fail_eff | pad
                 st["gated"] = _apply_gating(xp, corr, st["gated"],
                                             np.ceil(np.minimum(u,
                                                                active_n)),
@@ -767,7 +1043,8 @@ class FleetEngine:
         """The reference's `_run_jax` with its two nested `lax.scan`s as
         Python loops of torch ops on `self.device`. Everything a step
         needs from the host (trace rows, window indices, the carbon
-        gate's verdict) is prepared before the loops, so they never wait
+        gate's verdict, the fault layer's columns and which periods hold
+        a crash onset) is prepared before the loops, so they never wait
         for the device."""
         sh, dev = self.shape, self.device
         params = self.params
@@ -808,15 +1085,41 @@ class FleetEngine:
         one = torch.ones((), dtype=torch.float32, device=dev)
         hist_one = torch.ones(sh.n_machines, dtype=torch.int64, device=dev)
         n_vec = sh.num_cores
+        # The fault layer's columns, uploaded once (the jax backend's scan
+        # inputs); none is built without a fault model.
+        fx = self._faults
+        guard_on = fx is not None and fx.guard is not None
+        if fx is not None:
+            up_frac, cap_mult = (torch.tensor(c, dtype=torch.float32,
+                                              device=dev)
+                                 for c in (fx.up_frac, fx.cap_mult))
+            onset = torch.tensor(fx.onset, dtype=torch.bool, device=dev)
+            onset_any = fx.onset.any(axis=1).tolist()
+        if guard_on:
+            thresh = torch.tensor(fx.thresh, dtype=torch.float32, device=dev)
         for k in range(start_macro, sh.n_macro):
-            gated_eff = st["gated"]
+            # failed cores are unstressed, like gated ones: the aging
+            # kernel sees them through this mask
+            gated_eff = (st["gated"] | st["failed"]) if guard_on \
+                else st["gated"]
             f = f0 * (1.0 - st["dvth"] / params.headroom)
             active = ~gated_eff
             active_n = active.sum(dim=1).to(torch.float32)
             sm = (torch.where(active, f, 0.0).sum(dim=1)
                   / torch.clamp(active_n, min=1.0))
+            if fx is not None:
+                # capacity columns: stalls scale speed, crashes scale the
+                # live core count; a machine with no live cores keeps a
+                # finite nominal speed
+                sm = sm * cap_mult[k]
+                active_n = active_n * up_frac[k]
+                sm = torch.where(active_n > 0, sm, f.mean(dim=1))
             dyn = (sm[:P], sm[P:], sm, active_n)
             q = tuple(st[key] for key in _QUEUE_KEYS)
+            if fx is not None and onset_any[k]:
+                q, retried = _redistribute_queues_torch(q, onset[k],
+                                                        up_frac[k], P)
+                st["retried"] += retried
             for step in range(k * spp, (k + 1) * spp):
                 q, obs = _micro_step_torch(sh, dyn, q, rows[step])
                 u, ov, done = obs["u"], obs["ov"], obs["done"]
@@ -843,6 +1146,22 @@ class FleetEngine:
             st["dvth"] = _settle_aging(sh, st["dvth"], gated_eff,
                                        st["busy_s"], advance)
             st["busy_s"].zero_()
+            failed = st.get("failed")
+            if guard_on:
+                # the guardband crossing reads the dVth the kernel gave
+                margin, hazard = fx.guard
+                over = (st["dvth"] / params.headroom - margin) / margin
+                haz = hazard * fx.period * torch.clamp(over, min=0.0)
+                cum = st["cum_haz"] + torch.where(failed, 0.0, haz)
+                cand = (cum >= thresh) & ~failed
+                allowed = torch.clamp(
+                    fx.max_failed_n - failed.sum(dim=1).to(torch.float32),
+                    min=0.0)
+                key = torch.where(cand, cum - thresh, -np.inf)
+                failed = failed | (cand & (_rank(-key) < allowed[:, None]))
+                st["failed"], st["cum_haz"] = failed, cum
+                st["lost_core_s"] += (failed.sum().to(torch.float32)
+                                      * fx.period)
             idle_norm = (active_n - u - ov) / n_vec
             bins = torch.clamp(((idle_norm + 1.0) * 0.5
                                 * (_IDLE_BINS - 1)).to(torch.int32),
@@ -855,7 +1174,8 @@ class FleetEngine:
                                               dirty[k], carbon)
                 st["gated"] = _apply_gating_torch(
                     corr, st["gated"],
-                    torch.ceil(torch.minimum(u, active_n)), st["dvth"])
+                    torch.ceil(torch.minimum(u, active_n)), st["dvth"],
+                    failed=failed)
             st["macro"] = k + 1
         self.state = state_to_numpy(st)
 
@@ -969,6 +1289,13 @@ class FleetEngine:
         idle_pcts, below = self._idle_percentiles()
         mean_lat, p99_lat, completed = self._latency_postpass()
         task_cnt = max(float(st["task_cnt"]), 1.0)
+        robustness = None
+        if self._faults is not None:
+            robustness = self._faults.robustness(
+                st, completed, len(self._requests))
+            lost = robustness.pop("_lost_core_s")
+            robustness["availability"] = 1.0 - min(
+                lost / (sh.total_cores * sh.duration_s), 1.0)
         result = metrics_mod.price_and_build(
             self.cfg,
             cvs=cvs, degs=degs,
@@ -982,6 +1309,7 @@ class FleetEngine:
             elapsed=sh.duration_s,
             residencies=self.residencies(),
             engine="fleet",
+            robustness=robustness,
             carbon_model=carbon_model, power_model=power_model,
             fleet_inventory=self.inventory,
         )

@@ -1,11 +1,11 @@
 """Metric aggregation shared by the engines (paper §6.1.3), copied
 from `repro.sim.metrics`.
 
-`collect` reads a finished event-engine `Cluster`, and the fleet engine
-feeds stacked arrays; both go through `price_and_build`, which prices
-per-machine aging and state residencies into the frozen
-`ExperimentResult`. The reference's telemetry carbon-window rows join
-with telemetry (ROADMAP A5).
+`collect` reads a finished event-engine `Cluster` (its fault layer's
+robustness scalars included), and the fleet engine feeds stacked arrays;
+both go through `price_and_build`, which prices per-machine aging and
+state residencies into the frozen `ExperimentResult`. The reference's
+telemetry carbon-window rows join with telemetry (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -47,9 +47,9 @@ def collect(cluster, cfg: ExperimentConfig,
 
     `carbon_model` / `power_model` let a caller that already resolved
     `cfg.carbon_model` / `cfg.power_model` pass them in instead of
-    constructing them twice. `robustness` stays None: the cluster
-    refuses fault models (ROADMAP A4). `telemetry` must be None
-    (ROADMAP A5, telemetry).
+    constructing them twice. With a fault model other than "none" the
+    cluster's `FaultCoordinator` supplies the robustness scalars.
+    `telemetry` must be None (ROADMAP A5, telemetry).
     """
     if telemetry is not None:
         raise NotImplementedError(
@@ -76,6 +76,14 @@ def collect(cluster, cfg: ExperimentConfig,
 
     elapsed = max(m.manager.now for m in cluster.machines)
     residencies = tuple(m.manager.residency() for m in cluster.machines)
+    robustness = None
+    if cluster.faults is not None:
+        fc = cluster.faults
+        robustness = fc.robustness(elapsed)
+        # conservation residual: requests still in flight at the horizon
+        robustness["pending_requests"] = (
+            fc.submitted - cluster.completed_count
+            - fc.failed_requests - fc.rejected_requests)
     return price_and_build(
         cfg,
         cvs=cvs,
@@ -90,7 +98,7 @@ def collect(cluster, cfg: ExperimentConfig,
         aging_params=cluster.machines[0].manager.params,
         elapsed=elapsed,
         residencies=residencies,
-        robustness=None,
+        robustness=robustness,
         per_machine_idle_norm=tuple(
             tuple(float(x) for x in m.manager.metrics.idle_norm_samples)
             for m in cluster.machines),

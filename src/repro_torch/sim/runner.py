@@ -8,11 +8,11 @@ cluster under a policy (the counterpart of `repro.sim.runner`).
 
 `engine="event"` (the default, as in the reference) runs the bit-exact
 event loop of `repro_torch.sim.cluster` and `collect`s its result;
-`engine="fleet"` runs the vectorized fleet engine. Telemetry raises
+`engine="fleet"` runs the vectorized fleet engine. Both run every
+built-in fault model (`repro_torch.faults`). Telemetry raises
 NotImplementedError here, and what an engine does not run yet raises
-there (faults in `Cluster` and `FleetEngine`, checkpoints and ragged
-torch fleets in `FleetEngine`), each naming its ROADMAP item, rather
-than falling back to anything.
+there (checkpoints and ragged torch fleets in `FleetEngine`), each
+naming its ROADMAP item, rather than falling back to anything.
 """
 from __future__ import annotations
 
@@ -21,10 +21,11 @@ import multiprocessing
 
 from repro_torch.carbon import get_carbon_model
 from repro_torch.core.policies import canonical_policy_name
+from repro_torch.faults.registry import (canonical_fault_model_name,
+                                         get_fault_model)
 from repro_torch.hardware.inventory import canonical_fleet_name, resolve_fleet
 from repro_torch.power import get_power_model
 from repro_torch.power.registry import canonical_power_model_name
-from repro_torch.registry import canonical_name
 from repro_torch.sim.cluster import Cluster
 from repro_torch.sim.config import ExperimentConfig
 from repro_torch.sim.fleetsim import run_fleet_experiment
@@ -51,6 +52,9 @@ def run_experiment(cfg: ExperimentConfig,
     carbon_model = get_carbon_model(cfg.carbon_model, **cfg.carbon_options)
     power_model = get_power_model(cfg.power_model, **cfg.power_options)
     scenario = get_scenario(cfg.scenario, **cfg.scenario_options)
+    # Fault axis fail-fast: instantiate once to validate name + opts
+    # (the engines build their own per-machine instances).
+    get_fault_model(cfg.fault_model, **cfg.fault_options)
     resolve_fleet(cfg.fleet, cfg.fleet_options, cfg.n_machines)
     if cfg.engine == "fleet":
         return run_fleet_experiment(cfg, carbon_model=carbon_model,
@@ -119,7 +123,7 @@ def run_policy_sweep(
                     else r_cfg.with_power_model(w_name)
                 for fm in (fault_models if fault_axis
                            else (cfg.fault_model,)):
-                    f_name = canonical_name(fm)
+                    f_name = canonical_fault_model_name(fm)
                     f_cfg = w_cfg if f_name == w_cfg.fault_model \
                         else w_cfg.with_fault_model(f_name)
                     for fl in (fleets if fleet_axis else (cfg.fleet,)):

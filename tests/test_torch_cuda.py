@@ -1,11 +1,12 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, the fleet engine on CUDA against the same engine on the CPU,
-the event engine's torch settler on CUDA against its numpy settler,
-the dense model and serving engine through the attention kernels, and
-the Mamba2 model and engine through the SSD scan kernel. Every test here
-needs an NVIDIA GPU and skips without one; this
-file imports neither jax nor the reference, so it runs on a machine
-that has only the port's dependencies:
+version, the fleet engine on CUDA against the same engine on the CPU and,
+under each fault model it vectorizes, against its numpy backend, the
+event engine's torch settler on CUDA against its numpy settler (under
+guardband faults too), the dense model and serving engine through the
+attention kernels, and the Mamba2 model and engine through the SSD scan
+kernel. Every test here needs an NVIDIA GPU and skips without one; this
+file imports neither jax nor the reference, so it runs on a machine that
+has only the port's dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -28,7 +29,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_phases, ssd_scan_ref
 from repro_torch.models import Model, mamba2
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.sim import (Cluster, ExperimentConfig, FleetAgingSettler,
-                             run_experiment)
+                             collect, run_experiment)
 from repro_torch.workloads import get_scenario
 
 pytestmark = pytest.mark.cuda
@@ -141,6 +142,92 @@ def test_event_settler_on_cuda_matches_numpy(cuda_device):
     got = _settled_cluster_state({"backend": "torch", "device": "cuda"})
     assert ops.KERNEL.launches == 1
     np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-8)
+
+
+# The reference's TestFleetEngineFaults config and options
+# (tests/test_faults.py), and TestBackendAgreement's bounds
+# (tests/test_fleetsim.py)
+FAULT_CELLS = {"guardband": {"margin": 0.012},
+               "machine-crash": {"mttf_s": 120.0},
+               "transient-stall": {"rate_per_s": 0.1}}
+BACKEND_BOUNDS = {"completed": 0.01, "mean_latency_s": 0.01,
+                  "p50_degradation": 0.02, "fleet_yearly_kgco2eq": 0.05}
+
+
+def _conserved(r) -> bool:
+    return (r.completed + r.failed_requests + r.rejected_requests
+            + r.pending_requests) == r.submitted
+
+
+def _backend_deltas(res, ref) -> dict:
+    return {"completed": _rel(res.completed, ref.completed),
+            "mean_latency_s": _rel(res.mean_latency_s, ref.mean_latency_s),
+            "p50_degradation": _rel(res.mean_degradation_percentiles[50],
+                                    ref.mean_degradation_percentiles[50]),
+            "fleet_yearly_kgco2eq": _rel(res.fleet_yearly_kgco2eq,
+                                         ref.fleet_yearly_kgco2eq)}
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_CELLS))
+def test_fleet_faults_on_cuda_match_numpy(cuda_device, name):
+    """The torch backend on CUDA under each fault model the fleet engine
+    vectorizes (failed cores reach the aging kernel as unstressed),
+    against the port's numpy backend: the aging kernel launched twice a
+    period; crashes, stalls and failed cores equal, retries within 1 and
+    availability within 1e-3 relative (the reference's
+    `test_backends_agree_on_counts`); the rest at TestBackendAgreement's
+    bounds."""
+    cfg = ExperimentConfig(policy="proposed", duration_s=60.0, seed=7,
+                           fault_model=name, fault_opts=FAULT_CELLS[name])
+    ops.KERNEL.launches = 0
+    on_gpu = run_experiment(cfg.with_engine("fleet", backend="torch"))
+    assert ops.KERNEL.launches == 2 * 60
+    ref = run_experiment(cfg.with_engine("fleet", backend="numpy"))
+    assert (on_gpu.machine_crashes, on_gpu.stalls, on_gpu.core_failures) \
+        == (ref.machine_crashes, ref.stalls, ref.core_failures)
+    assert abs(on_gpu.retries - ref.retries) <= 1
+    assert _rel(on_gpu.availability, ref.availability) < 1e-3
+    assert _conserved(on_gpu)
+    for key, delta in _backend_deltas(on_gpu, ref).items():
+        assert delta < BACKEND_BOUNDS[key], key
+
+
+def _guardband_pair(settler_kw):
+    """The reference's TestGuardbandAcceptance pair (seed 3, 60 s, margin
+    0.012) under linux and proposed, settled by the given settler."""
+    base = ExperimentConfig(seed=3, duration_s=60.0, fault_model="guardband",
+                            fault_opts=(("margin", 0.012),))
+    out = {}
+    for policy in ("linux", "proposed"):
+        cfg = base.with_policy(policy)
+        cluster = Cluster(cfg)
+        if settler_kw:
+            cluster.fleet_settler = FleetAgingSettler(
+                [m.manager for m in cluster.machines], **settler_kw)
+        trace = get_scenario(cfg.scenario).generate(
+            rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
+        cluster.run(trace, cfg.duration_s,
+                    sample_period_s=cfg.sample_period_s)
+        out[policy] = collect(cluster, cfg)
+    return out
+
+
+def test_event_settler_on_cuda_under_guardband(cuda_device):
+    """The acceptance pair with the torch settler on the card: one aging
+    launch per idling period (60 a run); proposed fails fewer cores and
+    keeps higher availability than linux, requests are conserved, and
+    each run is within TestBackendAgreement's bounds of the numpy
+    settler's."""
+    want = _guardband_pair({})
+    ops.KERNEL.launches = 0
+    got = _guardband_pair({"backend": "torch", "device": "cuda"})
+    assert ops.KERNEL.launches == 2 * 60
+    assert got["proposed"].core_failures < got["linux"].core_failures
+    assert got["proposed"].availability > got["linux"].availability
+    for policy, res in got.items():
+        assert _conserved(res)
+        for key, delta in _backend_deltas(res, want[policy]).items():
+            assert delta < BACKEND_BOUNDS[key], (policy, key)
 
 
 def test_attention_kernels_refuse_mla_head_dims(cuda_device):

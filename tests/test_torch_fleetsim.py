@@ -223,20 +223,15 @@ class TestOutOfSlice:
     """What the port does not run yet raises, and never falls back."""
 
     @pytest.mark.parametrize("cfg,item", [
-        (ExperimentConfig(duration_s=1.0).with_fault_model("machine-crash"),
-         "A4"),
         (ExperimentConfig(duration_s=1.0).with_telemetry(), "A5"),
-        (ExperimentConfig(duration_s=1.0).with_engine(
-            "fleet", backend="numpy").with_fault_model("machine-crash"),
-         "A4"),
         (ExperimentConfig(duration_s=1.0).with_engine(
             "fleet", backend="numpy", checkpoint_dir="ckpt"), "A6"),
         (ExperimentConfig(duration_s=1.0).with_engine(
             "fleet", backend="numpy").with_telemetry(), "A5"),
         (ExperimentConfig(duration_s=1.0, fleet="xeon-28c:5+epyc-64c:rest")
          .with_engine("fleet", backend="torch", device="cpu"), "A6"),
-    ], ids=["event-faults", "event-telemetry", "faults", "checkpoint",
-            "telemetry", "mixed-fleet-torch"])
+    ], ids=["event-telemetry", "checkpoint", "telemetry",
+            "mixed-fleet-torch"])
     def test_raises_not_implemented(self, cfg, item):
         with pytest.raises(NotImplementedError, match=item):
             run_experiment(cfg)
