@@ -2,6 +2,7 @@
 """Where the time of the port's torch fleet engine goes, on one GPU.
 
     python3 benchmarks_torch/profile_fleet.py [--fault-model NAME]
+        [--fleet SPEC] [--telemetry]
     python3 benchmarks_torch/profile_fleet.py --turns
 
 Runs the fleet cell of `chip_smoke.py` (its `FLEET` config: 200
@@ -9,7 +10,11 @@ machines x 40 cores, conversation-poisson at 545.455 rps, policy
 "proposed"; with `--fault-model guardband` or `machine-crash`, its
 fault cells `FLEET_GUARDBAND` or `FLEET_CRASH`) cut to the first 60
 simulated seconds, under `torch.profiler`, after one untimed warm-up run
-of the same length.
+of the same length. `--fleet SPEC` runs a fleet spec of
+`repro_torch.hardware` in its place (`--fleet mixed` is the smoke's
+`FLEET_MIXED`, "xeon-40c:100+epyc-64c:rest", its core axis padded to
+64), and `--telemetry` hands both runs a `TelemetryHub` and prints what
+it holds after the profiled one.
 Prints the wall time of the profiled run, the summed device time of its
 kernels, the device's idle share
 (1 - device time / wall), the count of kernel launches per simulated
@@ -67,6 +72,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fault-model", default="none",
                     choices=("none", "guardband", "machine-crash"))
+    ap.add_argument("--fleet", default="uniform",
+                    help='a fleet spec, or "mixed" for the smoke\'s '
+                         'FLEET_MIXED')
+    ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--turns", action="store_true")
     args = ap.parse_args()
     import torch
@@ -77,9 +86,10 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import FLEET, FLEET_CRASH, FLEET_GUARDBAND
+    from chip_smoke import FLEET, FLEET_CRASH, FLEET_GUARDBAND, FLEET_MIXED
     from repro_torch.sim import ExperimentConfig
     from repro_torch.sim.fleetsim import run_fleet_experiment
+    from repro_torch.telemetry import TelemetryHub
     from repro_torch.workloads import get_scenario
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -91,17 +101,23 @@ def main() -> int:
     if args.turns:
         turns(torch, cells)
         return 0
+    fleet = FLEET_MIXED["fleet"] if args.fleet == "mixed" else args.fleet
     cfg = ExperimentConfig(**dict(cells[args.fault_model],
-                                  duration_s=SECONDS)).with_engine(
+                                  duration_s=SECONDS,
+                                  fleet=fleet)).with_engine(
         "fleet", backend="torch")
     reqs = get_scenario(cfg.scenario).generate(
         rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
-    run_fleet_experiment(cfg, requests=reqs)          # warm-up
+
+    def hub():
+        return TelemetryHub() if args.telemetry else None
+    run_fleet_experiment(cfg, telemetry=hub(), requests=reqs)   # warm-up
     torch.cuda.synchronize()
+    tel = hub()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_fleet_experiment(cfg, requests=reqs)
+        run_fleet_experiment(cfg, telemetry=tel, requests=reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -118,8 +134,12 @@ def main() -> int:
                                 "cudaLaunchKernelExC"))
     periods = int(round(cfg.duration_s / cfg.idling_period_s))
     print(f"cell: {cfg.n_machines} machines x {cfg.duration_s:g} s, "
-          f"fault model {cfg.fault_model}, {periods} periods, "
-          f"{len(reqs)} requests")
+          f"fleet {cfg.fleet}, fault model {cfg.fault_model}, {periods} "
+          f"periods, {len(reqs)} requests")
+    if tel is not None:
+        s = tel.summary()
+        print(f"telemetry: events {s['event_kinds']}, gauges "
+              f"{s['gauges']}, timelines {s['timelines']}")
     print(f"profiled wall: {wall:.3f} s (profiler on)")
     print(f"kernel launches: {launches} ({launches / periods:.1f} per "
           f"period)")

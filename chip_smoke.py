@@ -79,13 +79,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    fail fewer cores and keep higher availability than linux, and every
    request must be accounted for (completed + failed + rejected + pending
    == submitted).
+3d. Telemetry, checkpoints and a mixed fleet. fleet-200x1h-telemetry-ckpt
+   runs phase 3's config and trace on CUDA with a caller's
+   `TelemetryHub` and a checkpoint every 600 simulated seconds into a
+   temporary directory: its result must equal phase 3's torch result
+   exactly (less `provenance`, which holds the fingerprint, and
+   `telemetry_summary`); then the checkpoints after 1,800 s are dropped,
+   the run resumes from 1,800 s and must give that result again.
+   fleet-200x1h-mixed runs the same config and trace on a fleet halfway
+   through a hardware refresh (100 machines of 40 cores, 100 of 64, the
+   core axis padded to 64: 12,800 lanes, 2,400 padded) on CUDA and on
+   numpy, held at `TestBackendAgreement`'s bounds; every padded lane's
+   dVth must stay 0.0 on both. event-22x120s-telemetry runs phase 3b's
+   cell with `with_telemetry(export_dir=...)` through `run_experiment`
+   (numpy settler), whose result must equal phase 3b's and whose summary
+   must equal the port's CPU run (`EVENT_TELEMETRY`), and through
+   `Cluster(cfg, telemetry=hub)` with the torch settler on the card,
+   whose result must equal phase 3b's torch-settled one.
 4. Llama-3-8B at full width (32 layers, bfloat16, random weights from
    seed 0) served by the port's `InferenceEngine` and `CoreManager`: 8
    requests of 128 to 1,024 prompt tokens and 32 new tokens each, 4
    batch slots, policy "proposed" on 16 host cores. Prefill attention
    goes through the flash_attention kernel and decode attention through
    the decode_attention kernel; their launch counts are read right
-   after. Then each request's tokens are fed again through the model on
+   after. A `TelemetryHub` is attached to the engine: its counters must
+   add up to the core manager's tasks and `prometheus_text()` must hold
+   them. Then each request's tokens are fed again through the model on
    the kernel path and on the plain path: in bfloat16 the kernel path
    must stay within the noise floor of bfloat16 rounding at this depth,
    measured in the same run, and in float32 (the same architecture at
@@ -96,7 +115,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    the decode step has no kernel), and the same two holds of the kernel
    path against the plain path (`ssd_chunked`) follow.
 
-Phases 3, 3b, 3c and each serving phase set every kernel's launch count
+Phases 3, 3b, 3c, 3d and each serving phase set every kernel's launch count
 to 0 just before each main run and read them all just after: a kernel of
 the path must have run exactly as often as the path calls it, and no
 other kernel at all.
@@ -110,9 +129,12 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import platform
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -123,8 +145,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
-KERNEL_NS = (1, 7, 128, 1024, 5000, 8000, 1_280_000)
-TIMED_NS = (8000, 1_280_000)          # the smoke fleet; 10k x 128 cores
+KERNEL_NS = (1, 7, 128, 1024, 5000, 8000, 12_800, 1_280_000)
+# the smoke fleet; its mixed cell (200 x 64 padded lanes); 10k x 128 cores
+TIMED_NS = (8000, 12_800, 1_280_000)
 RTOL, ATOL = 1e-6, 1e-9
 # per element: 4 float32 loads + 1 store; 16 float ops (5 exp/pow)
 AGING_BYTES, AGING_OPS = 20, 16
@@ -159,6 +182,21 @@ AVAILABILITY_RTOL = 1e-3
 # by 1.4e-4 relative on an H100), and 200 machines x 600 s on the CPU
 # gave 29,748 against 29,741 (2.4e-4). So they are held at 1e-3 relative.
 RETRIES_RTOL = 1e-3
+# phase 3d: telemetry, checkpoints and a mixed fleet. FLEET halfway
+# through a hardware refresh: 100 of the 40-core reference SKU and 100
+# EPYC 64-core machines at one NBTI operating point, the core axis padded
+# to 64 (10,400 real cores of 12,800 lanes).
+FLEET_MIXED = dict(FLEET, fleet="xeon-40c:100+epyc-64c:rest")
+CKPT_EVERY_S = 600.0
+CKPT_RESUME_AT = 1800           # simulated s: later checkpoints are dropped
+# event-22x120s with a hub: its summary as the CPU run of the port gives
+# it (the event engine is host numpy float64, equal on every host). The
+# ring of 200,000 events drops the run's first 5,876.
+EVENT_TELEMETRY = {
+    "events": 200_000, "events_dropped": 5_876,
+    "event_kinds": {"assign": 53_509, "gate": 471, "oversub": 28_621,
+                    "phase": 2, "promote": 25_106, "release": 82_129,
+                    "route": 9_686, "wake": 476}}
 # TestJaxBackend bound (reference tests/test_fleetstate.py) for one settle
 SETTLE_TOL = dict(rtol=2e-6, atol=1e-8)
 # the mid-run state settled by both settlers: run to T, settle at T + DT
@@ -700,13 +738,14 @@ def phase_fleet(torch, kernels):
         raise AssertionError("fleet result is not finite or has the "
                              "wrong shape")
     hold("[fleet] torch/cuda vs numpy", deltas(res, ref, BOUNDS), BOUNDS)
-    return launches, reqs
+    return launches, reqs, res, wall_t
 
 
 def phase_event(torch, np, kernels, floor):
     """`kernels`: the `CudaKernel` of every kernel of the port; the
     event path launches the aging kernel only. `floor`: the empty
-    kernel, timed beside it."""
+    kernel, timed beside it. Returns the launches of the torch-settled
+    run, the numpy-settled result and the torch-settled one."""
     from repro_torch.kernels.aging_update.ops import KERNEL, advance_fleet
     from repro_torch.kernels.aging_update.ref import aging_update_ref
     from repro_torch.sim import (Cluster, ExperimentConfig,
@@ -844,7 +883,198 @@ def phase_event(torch, np, kernels, floor):
         f"(CUDA graph) {kernel_us:.3f} us, plain {plain_us:.3f} us, an "
         f"empty kernel of the same geometry {floor_us:.3f} us, bound "
         f"{bound_us:.4f} us (bytes)")
-    return launches
+    return launches, res, on_card
+
+
+def aging_only(torch, kernels, path, expected, run):
+    """`run()` with every kernel's launch count set to 0 just before it
+    and read just after: the aging kernel must have launched `expected`
+    times and no other kernel at all. Returns `run()`'s result and its
+    wall, the device synchronised."""
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    if launches["aging_update"] != expected or any(
+            n for name, n in launches.items() if name != "aging_update"):
+        raise AssertionError(f"{path}: launches {launches}, expected "
+                             f"{expected} of aging_update only")
+    return out, wall
+
+
+def _result_dict(r) -> str:
+    """A result as canonical JSON, less `provenance` (which holds the
+    fingerprint, and so `checkpoint_dir` and the telemetry options) and
+    `telemetry_summary`: equal strings are equal bits."""
+    d = r.to_dict()
+    d.pop("provenance")
+    d.pop("telemetry_summary")
+    return json.dumps(d, sort_keys=True)
+
+
+def phase_telemetry(torch, np, kernels, reqs, fleet_res, fleet_wall,
+                    event_res, event_card):
+    """Phase 3d. `kernels`: the `CudaKernel` of every kernel of the port
+    (these paths launch the aging kernel only); `reqs`: phase 3's trace;
+    `fleet_res`, `fleet_wall`: phase 3's torch result and engine wall;
+    `event_res`, `event_card`: phase 3b's results with the numpy and the
+    torch settler. Returns the aging kernel's launches on each path."""
+    from repro_torch.sim import (Cluster, ExperimentConfig, FleetEngine,
+                                 FleetAgingSettler, collect, run_experiment)
+    from repro_torch.sim.fleetsim import run_fleet_experiment
+    from repro_torch.telemetry import TelemetryHub
+    from repro_torch.workloads import get_scenario
+
+    by_path = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # fleet-200x1h-telemetry-ckpt: a caller's hub and checkpoints
+        ckpt = os.path.join(tmp, "ckpt")
+        cfg = ExperimentConfig(**FLEET).with_engine(
+            "fleet", backend="torch", checkpoint_dir=ckpt,
+            checkpoint_every_s=CKPT_EVERY_S)
+        periods = int(round(cfg.duration_s / cfg.idling_period_s))
+        path = "fleet-200x1h-telemetry-ckpt"
+        hub = TelemetryHub()
+        res, wall = aging_only(
+            torch, kernels, path, 2 * periods,
+            lambda: run_fleet_experiment(cfg, telemetry=hub, requests=reqs))
+        by_path[path] = 2 * periods
+        steps = sorted(os.listdir(ckpt))
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, d, f))
+                     for d in steps for f in os.listdir(os.path.join(ckpt, d)))
+        # a checkpoint at every multiple of its period short of the end
+        written = (periods - 1) // int(CKPT_EVERY_S / cfg.idling_period_s)
+        s = hub.summary()
+        points = {k: v["points"] for k, v in s["timelines"].items()}
+        same = _result_dict(res) == _result_dict(fleet_res)
+        log(f"[telemetry] {path}: engine {wall:.2f} s wall (phase 3's torch "
+            f"engine {fleet_wall:.2f} s), {written} checkpoints written, "
+            f"{len(steps)} kept ({steps[0]} to {steps[-1]}), {nbytes} bytes "
+            f"kept ({nbytes / len(steps):.0f} a checkpoint); hub: events "
+            f"{s['event_kinds']}, timeline points {points}, "
+            f"gauges {s['gauges']}; B1 {2 * periods} launches; result "
+            f"{'equal to' if same else 'DIFFERENT from'} phase 3's")
+        if not same:
+            raise AssertionError(f"{path}: the result differs from phase "
+                                 f"3's torch result")
+        if hub.events[0] != {"kind": "engine", "t": 0.0, "engine": "fleet",
+                             "backend": "torch"} or res.telemetry_summary \
+                is not None or not points["fleet/windows"]:
+            raise AssertionError(f"{path}: the hub or the summary is not "
+                                 f"what the reference gives")
+        # drop the checkpoints after CKPT_RESUME_AT and resume
+        resume_step = int(CKPT_RESUME_AT / cfg.idling_period_s)
+        for d in steps:
+            if int(d[5:]) > resume_step:
+                shutil.rmtree(os.path.join(ckpt, d))
+        left = periods - resume_step
+        path = "fleet-200x1h-telemetry-ckpt-resume"
+        again, wall_r = aging_only(
+            torch, kernels, path, 2 * left,
+            lambda: run_fleet_experiment(cfg, requests=reqs))
+        by_path[path] = 2 * left
+        same = _result_dict(again) == _result_dict(fleet_res)
+        log(f"[telemetry] {path}: resumed at step {resume_step}, engine "
+            f"{wall_r:.2f} s wall, B1 {2 * left} launches; result "
+            f"{'equal to' if same else 'DIFFERENT from'} phase 3's")
+        if not same:
+            raise AssertionError(f"{path}: the resumed result differs "
+                                 f"from phase 3's torch result")
+
+        # fleet-200x1h-mixed: a padded (200, 64) fleet on the card
+        path = "fleet-200x1h-mixed"
+        mcfg = ExperimentConfig(**FLEET_MIXED)
+        engines, walls = {}, {}
+        eng = FleetEngine(mcfg.with_engine("fleet", backend="torch"))
+        _, walls["torch"] = aging_only(torch, kernels, path, 2 * periods,
+                                    lambda: eng.run(reqs))
+        engines["torch"] = eng
+        by_path[path] = 2 * periods
+        eng = FleetEngine(mcfg.with_engine("fleet", backend="numpy"))
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        walls["numpy"] = time.perf_counter() - t0
+        engines["numpy"] = eng
+        machine_s = mcfg.n_machines * mcfg.duration_s
+        results = {}
+        for name, eng in engines.items():
+            pad = eng._pad
+            dvth = eng.state["dvth"]
+            results[name] = r = eng.collect()
+            log(f"[telemetry] {path} {name}: engine {walls[name]:.2f} s "
+                f"wall, {machine_s / walls[name]:.1f} machine-s/wall-s, "
+                f"{dvth.size} lanes ({int(pad.sum())} padded), padded "
+                f"lanes' largest dVth {float(np.abs(dvth[pad]).max())!r}, "
+                f"completed {r.completed}, p99_latency_s "
+                f"{r.p99_latency_s!r}, fleet_yearly_kgco2eq "
+                f"{r.fleet_yearly_kgco2eq!r}")
+            if dvth.size != 12_800 or int(pad.sum()) != 2_400 \
+                    or (dvth[pad] != 0.0).any():
+                raise AssertionError(f"{path} {name}: the padded lanes "
+                                     f"aged or the fleet is misshapen")
+            if not all(math.isfinite(v) for v in (
+                    r.mean_latency_s, r.p99_latency_s,
+                    r.fleet_yearly_kgco2eq)) or r.completed <= 0:
+                raise AssertionError(f"{path} {name}: result not finite")
+        hold(f"[telemetry] {path} torch/cuda vs numpy",
+             deltas(results["torch"], results["numpy"], BOUNDS), BOUNDS)
+
+        # event-22x120s-telemetry: the numpy settler through the runner
+        path = "event-22x120s-telemetry"
+        export = os.path.join(tmp, "export")
+        ecfg = ExperimentConfig().with_telemetry(export_dir=export)
+        t0 = time.perf_counter()
+        res = run_experiment(ecfg)
+        wall = time.perf_counter() - t0
+        s = res.telemetry_summary
+        files = {k: (os.path.relpath(v, export), os.path.getsize(v))
+                 for k, v in s["export"].items()}
+        got = {k: s[k] for k in EVENT_TELEMETRY}
+        same = _result_dict(res) == _result_dict(event_res)
+        log(f"[telemetry] {path} numpy settler via run_experiment: "
+            f"{wall:.3f} s wall; events {s['events']} (dropped "
+            f"{s['events_dropped']}), kinds {s['event_kinds']}; exported "
+            f"{files}; result {'equal to' if same else 'DIFFERENT from'} "
+            f"the [event] run without a hub")
+        if not same or got != EVENT_TELEMETRY:
+            raise AssertionError(f"{path}: the result or the summary "
+                                 f"differs: {got}")
+        # the same cell with the torch settler on the card and a hub
+        ocfg = ExperimentConfig()
+        trace = get_scenario(ocfg.scenario).generate(
+            rate_rps=ocfg.rate_rps, duration_s=ocfg.duration_s,
+            seed=ocfg.seed)
+        hub = TelemetryHub()
+
+        def torch_settled():
+            cluster = Cluster(ocfg, telemetry=hub)
+            cluster.fleet_settler = FleetAgingSettler(
+                [m.manager for m in cluster.machines], backend="torch",
+                device="cuda")
+            cluster.run(trace, ocfg.duration_s,
+                        sample_period_s=ocfg.sample_period_s)
+            return collect(cluster, ocfg, telemetry=hub)
+        periods = int(round(ocfg.duration_s / ocfg.idling_period_s))
+        card, wall = aging_only(torch, kernels, path, periods,
+                                torch_settled)
+        by_path[path] = periods
+        same = json.dumps(card.to_dict(), sort_keys=True) == json.dumps(
+            event_card.to_dict(), sort_keys=True)
+        log(f"[telemetry] {path} torch/cuda settler with a hub: "
+            f"Cluster.run and collect {wall:.3f} s, {hub.summary()['events']}"
+            f" events, B1 {periods} launches; result "
+            f"{'equal to' if same else 'DIFFERENT from'} the torch-settled "
+            f"[event] run without a hub")
+        if not same:
+            raise AssertionError(f"{path}: the torch-settled result "
+                                 f"differs with a hub")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return by_path
 
 
 def conserved(r) -> bool:
@@ -874,29 +1104,16 @@ def phase_faults(torch, kernels, reqs):
     from repro_torch.sim.fleetsim import run_fleet_experiment
     from repro_torch.workloads import get_scenario
 
-    def counted(path, expected, run):
-        for k in kernels:
-            k.launches = 0
-        out = run()
-        torch.cuda.synchronize()
-        launches = {k.name: k.launches for k in kernels}
-        if launches["aging_update"] != expected or any(
-                n for name, n in launches.items() if name != "aging_update"):
-            raise AssertionError(f"{path}: launches {launches}, expected "
-                                 f"{expected} of aging_update only")
-        return out, launches["aging_update"]
-
     by_path = {}
     for path, kw in (("fleet-200x1h-guardband", FLEET_GUARDBAND),
                      ("fleet-200x1h-crash", FLEET_CRASH)):
         cfg = ExperimentConfig(**kw).with_engine("fleet", backend="torch")
         machine_s = cfg.n_machines * cfg.duration_s
         periods = int(round(cfg.duration_s / cfg.idling_period_s))
-        t0 = time.perf_counter()
-        res, by_path[path] = counted(
-            path, 2 * periods,
+        res, wall_t = aging_only(
+            torch, kernels, path, 2 * periods,
             lambda: run_fleet_experiment(cfg, requests=reqs))
-        wall_t = time.perf_counter() - t0
+        by_path[path] = 2 * periods
         t0 = time.perf_counter()
         ref = run_fleet_experiment(cfg.with_engine("fleet", backend="numpy"),
                                    requests=reqs)
@@ -953,7 +1170,8 @@ def phase_faults(torch, kernels, reqs):
             fault_line(f"[faults] {path}", f"{policy}, torch/cuda settler",
                        torch_runs[policy], time.perf_counter() - t0,
                        cfg.n_machines * cfg.duration_s)
-    _, by_path[path] = counted(path, 2 * periods, torch_settled)
+    aging_only(torch, kernels, path, 2 * periods, torch_settled)
+    by_path[path] = 2 * periods
     for name, runs in (("numpy", numpy_runs), ("torch/cuda", torch_runs)):
         linux, proposed = runs["linux"], runs["proposed"]
         ok = (proposed.core_failures < linux.core_failures
@@ -982,6 +1200,7 @@ def phase_serve(torch, np, serve, kernels, expected):
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.telemetry import TelemetryHub
 
     cfg = get_config(serve["arch"])
     tag = f"[serve {cfg.name}]"
@@ -998,10 +1217,11 @@ def phase_serve(torch, np, serve, kernels, expected):
         f"{n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB) "
         f"initialised on the card in {time.perf_counter() - t0:.2f} s")
 
-    def engine():
+    def engine(hub=None):
         return InferenceEngine(
             model, max_batch=serve["max_batch"], max_len=serve["max_len"],
-            policy=serve["policy"], num_host_cores=serve["host_cores"])
+            policy=serve["policy"], num_host_cores=serve["host_cores"],
+            telemetry=hub)
 
     warm = engine()                    # cuBLAS handles, allocator pools
     warm.submit(list(range(serve["prompt_lens"][0])), max_new_tokens=2)
@@ -1012,7 +1232,8 @@ def phase_serve(torch, np, serve, kernels, expected):
     lo, hi = serve["prompt_lens"]
     lens = rng.integers(lo, hi + 1, serve["requests"])
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    eng = engine()
+    hub = TelemetryHub()
+    eng = engine(hub)
     prefill_s, decode_iters = [0.0], [0]
     real_prefill, real_decode = eng._prefill_fn, eng._decode_fn
 
@@ -1057,6 +1278,21 @@ def phase_serve(torch, np, serve, kernels, expected):
         f"{rep['active_cores']}/{serve['host_cores']} cv={rep['cv']:.4f} "
         f"mean_freq_degradation={rep['mean_degradation']:.5f} "
         f"cpu_tasks={rep['assigns']}")
+    # the hub counts the tasks placed on a core and, apart, those that
+    # found none (oversubscribed); together they are the manager's
+    metrics = eng.core_manager.metrics
+    placed = hub.counter("assigns").value
+    oversub = hub.counter("oversub_assigns").value
+    prom = eng.prometheus_text()
+    log(f"{tag} telemetry hub: assigns {placed} + oversub_assigns "
+        f"{oversub} (manager: assigns {metrics.assigns}, oversub "
+        f"{metrics.oversub_assigns}), {hub.summary()['events']} events, "
+        f"prometheus_text {len(prom.splitlines())} lines")
+    if placed + oversub != metrics.assigns \
+            or oversub != metrics.oversub_assigns \
+            or f"repro_host_assigns {metrics.assigns}" not in prom:
+        raise AssertionError(f"{tag}: the hub's counters or the "
+                             f"Prometheus text disagree with the manager")
     want = expected(cfg, decode_iters[0])
     log(f"{tag} launches {launches} (expected {want}); peak device memory "
         f"{peak_gb:.2f} GB")
@@ -1070,7 +1306,7 @@ def phase_serve(torch, np, serve, kernels, expected):
     tokens = [req.output for req in reqs]
     # the hooks' closures hold the engine: freed here, not by a later
     # garbage collection, so that the next cell finds the card empty
-    del eng, reqs, real_prefill, real_decode
+    del eng, reqs, real_prefill, real_decode, hub
     _hold_bf16(torch, model, prompts, tokens, tag)
     del model
     torch.cuda.empty_cache()
@@ -1195,11 +1431,13 @@ def main() -> int:
     aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS, floor)
     attention_rows = phase_attention_kernels(torch, np)
     ssd_row = phase_ssd_kernel(torch, np)
-    launches, reqs = phase_fleet(torch, (AGING,))
-    event = phase_event(torch, np, every, floor)
+    launches, reqs, fleet_res, fleet_wall = phase_fleet(torch, (AGING,))
+    event, event_res, event_card = phase_event(torch, np, every, floor)
     by_path = {"fleet-200x1h": launches["aging_update"],
                "event-22x120s": event["aging_update"],
-               **phase_faults(torch, every, reqs)}
+               **phase_faults(torch, every, reqs),
+               **phase_telemetry(torch, np, every, reqs, fleet_res,
+                                 fleet_wall, event_res, event_card)}
     del reqs
     launches["aging_update"] = sum(by_path.values())
 

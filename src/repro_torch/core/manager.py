@@ -13,10 +13,8 @@ write access to the NBTI bookkeeping. A core's dVth advances lazily with
 the ADF of the (C-state, allocated) regime it was in, and every regime
 change first settles the elapsed interval under the old ADF.
 
-Copy of `repro.core.manager` with its import paths rewritten and its
-telemetry emissions taken out: the port has no telemetry hub yet
-(ROADMAP A5), so a `telemetry` other than None raises
-NotImplementedError. Everything else, the fault hooks included, is the
+Copy of `repro.core.manager` with its import paths rewritten; the
+telemetry hooks (`repro_torch.telemetry`) and the fault hooks are the
 reference's numpy float64 code, unchanged.
 """
 from __future__ import annotations
@@ -65,11 +63,6 @@ class CoreManager:
         telemetry=None,
         telemetry_id: int = 0,
     ):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "CoreManager(telemetry=...): the port has no telemetry hub "
-                "yet (ROADMAP A5)")
-        del telemetry_id        # the reference's signature, unused here
         self.num_cores = num_cores
         # Called as on_promote(task_id, core, now, speed) whenever a task
         # leaves the oversubscription queue for a real core, where `speed`
@@ -164,6 +157,30 @@ class CoreManager:
         # core -> transient slowdown factor; empty dict == zero cost on
         # the assign hot path (one falsy check per assign).
         self._stalls: dict[int, float] = {}
+        # Telemetry sink (repro_torch.telemetry.TelemetryHub) or None. Hot
+        # paths guard every emission with one `is not None` test so the
+        # disabled cost is exactly that test — recording is pure
+        # observation and never touches aging state or the RNG.
+        self._tel = telemetry if (
+            telemetry is not None and getattr(telemetry, "enabled", True)
+        ) else None
+        self._tel_id = int(telemetry_id)
+        self._tel_tick = 0
+        if self._tel is not None:
+            # Cache the probe objects once (the hub idiom): emissions
+            # become one bound-method call, not a name lookup per event.
+            tel, mid = self._tel, self._tel_id
+            self._c_assigns = tel.counter("assigns")
+            self._c_oversub_assigns = tel.counter("oversub_assigns")
+            self._c_promotions = tel.counter("promotions")
+            self._c_gates = tel.counter("gates")
+            self._c_wakes = tel.counter("wakes")
+            self._c_deferrals = tel.counter("carbon_deferrals")
+            self._s_active = tel.get_series(f"m{mid}/active_cores")
+            self._s_oversub = tel.get_series(f"m{mid}/oversub_tasks")
+            self._tl_freq = tel.timeline(f"m{mid}/freq")
+            self._tl_dvth = tel.timeline(f"m{mid}/dvth")
+            self._tl_cstate = tel.timeline(f"m{mid}/cstate")
 
     @staticmethod
     def _resolve_policy(policy, policy_opts) -> CorePolicy:
@@ -341,6 +358,13 @@ class CoreManager:
             self.task_start[task_id] = now
             self._oversub_accounted[task_id] = now
             self.metrics.oversub_assigns += 1
+            tel = self._tel
+            if tel is not None:
+                self._c_oversub_assigns.inc()
+                tel.push({"kind": "oversub", "t": now,
+                          "machine": self._tel_id, "task": task_id,
+                          "cause": "oversubscription",
+                          "waiting": len(self.oversub_tasks)})
             # Oversubscribed tasks time-share already-busy cores, so the
             # settled frequency of the fastest *busy* core bounds their
             # speed — pristine idle (or power-gated) cores are not
@@ -359,6 +383,11 @@ class CoreManager:
             if stall is not None:
                 speed *= stall
         self._task_speed[task_id] = speed
+        tel = self._tel
+        if tel is not None:
+            self._c_assigns.inc()
+            tel.push({"kind": "assign", "t": now, "machine": self._tel_id,
+                      "core": core, "task": task_id, "speed": speed})
         return speed
 
     def release(self, task_id: int, now: float) -> None:
@@ -372,6 +401,10 @@ class CoreManager:
             self.oversub_tasks.discard(task_id)
             self._task_speed.pop(task_id, None)
             self._account_oversub(task_id, now)
+            if self._tel is not None:
+                self._tel.push({"kind": "release", "t": now,
+                                "machine": self._tel_id, "core": -1,
+                                "task": task_id})
             if self.oversub_tasks:
                 self._promote_oversubscribed(now)
             return
@@ -386,6 +419,10 @@ class CoreManager:
         self._busy_cores.discard(core)
         self.idle_since[core] = now
         self._push_free(core)
+        if self._tel is not None:
+            self._tel.push({"kind": "release", "t": now,
+                            "machine": self._tel_id, "core": core,
+                            "task": task_id})
         self.policy.on_release(self._view, core)
         if self.oversub_tasks:
             self._promote_oversubscribed(now)
@@ -423,6 +460,12 @@ class CoreManager:
                 if stall is not None:
                     speed *= stall
             self._task_speed[task_id] = speed
+            if self._tel is not None:
+                self._c_promotions.inc()
+                self._tel.push({"kind": "promote", "t": now,
+                                "machine": self._tel_id, "core": core,
+                                "task": task_id, "speed": speed,
+                                "cause": "promotion"})
             if self.on_promote is not None:
                 self.on_promote(task_id, core, now, speed)
 
@@ -544,6 +587,16 @@ class CoreManager:
         for task_id in self.oversub_tasks:
             self._account_oversub(task_id, now, final=False)
 
+        tel = self._tel
+        if tel is not None:
+            self._s_active.observe(now, active)
+            self._s_oversub.observe(now, oversub)
+            self._tel_tick += 1
+            if self._tel_tick % tel.timeline_every == 0:
+                # settle_all just ran, so dvth is settled to `now`;
+                # frequency() here is a pure read of Eq. 1.
+                self._record_timelines(now)
+
         corr = self.policy.periodic(self._view)
         if corr is None:
             return
@@ -556,6 +609,8 @@ class CoreManager:
             raise ValueError(f"policy {self.policy.name!r} tried to idle "
                              f"cores {[int(i) for i in busy]} while they "
                              f"run tasks")
+        cause = getattr(corr, "cause", "policy")
+        deferred = getattr(corr, "deferred_wakes", 0)
         for i in corr.to_idle:
             # settle_all already brought core i to `now`; close its idle
             # window and power-gate.
@@ -564,6 +619,11 @@ class CoreManager:
             self._record_idle_end(i, idle_dur if idle_dur > 0.0 else 0.0)
             self.c_state[i] = CState.DEEP_IDLE
             self._stamp[i] += 1          # no longer in the free-core heap
+            if tel is not None:
+                self._c_gates.inc()
+                tel.push({"kind": "gate", "t": now,
+                          "machine": self._tel_id, "core": i,
+                          "cause": cause})
         for i in corr.to_wake:
             i = int(i)
             if self.failed.item(i):
@@ -574,6 +634,17 @@ class CoreManager:
             self.c_state[i] = CState.ACTIVE
             self.idle_since[i] = now
             self._push_free(i)
+            if tel is not None:
+                self._c_wakes.inc()
+                tel.push({"kind": "wake", "t": now,
+                          "machine": self._tel_id, "core": i,
+                          "cause": cause})
+        if tel is not None and deferred:
+            self._c_deferrals.inc(deferred)
+            tel.push({"kind": "carbon_deferral", "t": now,
+                      "machine": self._tel_id, "deferred": deferred,
+                      "oversub": oversub,
+                      "cause": "carbon-aware-deferral"})
         # settle_all already advanced the residency clock to `now`, so the
         # gated-count change takes effect from this instant. Recount from
         # c_state (not a +/- delta) so nonstandard corrections can't drift
@@ -585,6 +656,15 @@ class CoreManager:
     # ------------------------------------------------------------------ #
     # observability
     # ------------------------------------------------------------------ #
+    def _record_timelines(self, now: float) -> None:
+        """Per-core aging/frequency/regime snapshot into the cached
+        hub timelines (called from `periodic` after `settle_all`, so
+        `dvth` is already settled to `now`; pure reads, no mutation)."""
+        freq = aging.frequency(self.params, self.f0, self.dvth)
+        self._tl_freq.record(now, freq)
+        self._tl_dvth.record(now, self.dvth)
+        self._tl_cstate.record(now, self.c_state.astype(np.float64))
+
     def _frequencies_now(self, settle: bool = True) -> np.ndarray:
         if settle:
             self.settle_all(self.now)

@@ -13,7 +13,7 @@ host cores (age-halting) and a bursty one wakes them.
 
 Differences from the reference: the model (`repro_torch.models.Model`)
 carries its own weights, so the engine takes no `params`; the cache is
-updated in place; there is no telemetry hub yet (ROADMAP A5). For the
+updated in place. For the
 ssm family the cache holds W-1 rows of conv history per slot, where the
 reference's engine sizes it from a one-token prefill and holds one
 (ROADMAP R6).
@@ -30,6 +30,7 @@ import torch
 from repro_torch.core import CoreManager, CorePolicy
 from repro_torch.models import Model
 from repro_torch.sim.tasks import TaskIdAllocator
+from repro_torch.telemetry import TelemetryHub, prometheus_text
 
 
 @dataclasses.dataclass
@@ -73,6 +74,8 @@ class InferenceEngine:
             device=self.device).manual_seed(sample_seed)
         self.clock = clock
         self._t0 = clock()
+        # Live serving shares the simulator's telemetry surface: the same
+        # hub type, the same probes, exported via `prometheus_text()`.
         self.telemetry = telemetry
         self.core_manager = CoreManager(num_host_cores, policy=policy,
                                         rng=np.random.default_rng(0),
@@ -225,5 +228,20 @@ class InferenceEngine:
         }
 
     def prometheus_text(self) -> str:
-        raise NotImplementedError("prometheus_text needs the telemetry hub, "
-                                  "which is not ported yet (ROADMAP A5)")
+        """Prometheus-style text snapshot of the engine's host CPU —
+        the telemetry hub's probes (when one is attached) plus live
+        aging gauges, one metrics surface shared with the simulator's
+        exports (`repro_torch.telemetry.prometheus_text`). Serve it with
+        `repro_torch.telemetry.start_metrics_server(engine.prometheus_text)`.
+        """
+        hub = self.telemetry if self.telemetry is not None \
+            else TelemetryHub()
+        m = self.core_manager
+        extra = {
+            "host_freq_cv": m.frequency_cv(self._now()),
+            "host_mean_degradation": m.mean_frequency_degradation(),
+            "host_active_cores": float((m.c_state == 0).sum()),
+            "host_assigns": float(m.metrics.assigns),
+            "host_oversub_assigns": float(m.metrics.oversub_assigns),
+        }
+        return prometheus_text(hub, extra_gauges=extra)

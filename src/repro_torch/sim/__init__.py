@@ -5,8 +5,8 @@ results and runner.
 
 Workloads come from `repro_torch.workloads` (`Request` is re-exported
 here for convenience); carbon accounting from `repro_torch.carbon`;
-fault injection from `repro_torch.faults`, on both engines. Telemetry
-joins with ROADMAP A5.
+fault injection from `repro_torch.faults` and telemetry from
+`repro_torch.telemetry`, on both engines.
 """
 from repro_torch.sim.cluster import (Cluster, Machine, PromptInstance,
                                      TokenInstance)

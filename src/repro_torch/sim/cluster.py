@@ -17,10 +17,10 @@ prices its GPU work with the same seven constants.
 
 The event loop is host numpy float64, bit-identical to the reference,
 its fault layer (`FaultCoordinator`: injection, health-aware dispatch,
-retries with backoff, hedging, robustness accounting) included. The
-reference's telemetry hooks are not ported yet: `Cluster` raises for a
-telemetry hub (ROADMAP A5, telemetry), so `self.telemetry` is always
-None and the coordinator's telemetry pushes never fire.
+retries with backoff, hedging, robustness accounting) included, and
+so are its telemetry hooks (`repro_torch.telemetry`): the route counters
+and events, the sampler's three `fleet/*` series, every machine's
+`CoreManager` probes and the coordinator's four fault events.
 """
 from __future__ import annotations
 
@@ -669,15 +669,14 @@ class Cluster:
     """22-machine phase-splitting cluster + cluster-level scheduler."""
 
     def __init__(self, cfg: ExperimentConfig, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "Cluster(telemetry=...): telemetry is not ported yet: "
-                "ROADMAP A5 (telemetry)")
         self.cfg = cfg
         self.queue = EventQueue()
-        # The reference's telemetry sink; None until telemetry is ported
-        # (the fault layer reads it before each push).
-        self.telemetry = None
+        # Telemetry sink shared by every machine's CoreManager and the
+        # routing/sampling paths below (None = zero-cost off; the hub is
+        # owned by `run_experiment`, which exports it after the run).
+        self.telemetry = telemetry if (
+            telemetry is not None and getattr(telemetry, "enabled", True)
+        ) else None
         # One id stream per simulation (not per process): concurrent
         # clusters can't interleave ids, while within this cluster ids
         # stay globally ordered by spawn time — the property the
@@ -691,7 +690,7 @@ class Cluster:
                                        cfg.n_machines)
         self.machines = [
             Machine(i, cfg, self.queue, self.task_ids,
-                    track_inflight=faults_on,
+                    telemetry=self.telemetry, track_inflight=faults_on,
                     hw=(None if self.inventory is None
                         else self.inventory.skus[i]))
             for i in range(cfg.n_machines)
@@ -701,8 +700,8 @@ class Cluster:
         self.token_instances = [TokenInstance(m)
                                 for m in self.machines[cfg.n_prompt:]]
         self.completed: list[RequestState] = []
-        # Streaming latency summary: metrics read this instead of
-        # materializing a per-request latency array.
+        # Streaming latency summary (ROADMAP 1d): metrics read this
+        # instead of materializing a per-request latency array.
         self.completed_count = 0
         self.latency = LatencyAggregate()
         for ti in self.token_instances:
@@ -713,6 +712,13 @@ class Cluster:
         self.router = get_router(cfg.router, **cfg.router_options)
         self.router_rng = np.random.default_rng(cfg.seed * 1000 + 999)
         self.fleet = FleetView(self)
+        if self.telemetry is not None:
+            tel = self.telemetry
+            self._c_routes = {k: tel.counter(f"routes_{k}")
+                              for k in ("prompt", "token")}
+            self._s_prompt_depth = tel.get_series("fleet/prompt_queue_depth")
+            self._s_decode_load = tel.get_series("fleet/decode_load")
+            self._s_cpu_tasks = tel.get_series("fleet/cpu_tasks")
         # Pending-request hook for size-aware routers: set immediately
         # before every `_route` call so `FleetView` can expose the
         # routed request's token counts (None outside routing).
@@ -738,6 +744,19 @@ class Cluster:
         if not 0 <= idx < n:
             raise ValueError(f"router {self.router.name!r} returned "
                              f"{kind} index {idx}, outside [0, {n})")
+        tel = self.telemetry
+        if tel is not None:
+            # Record the FleetView the router judged against — queue
+            # depths (prompt) or decode loads (token) — so placement
+            # decisions are auditable after the run.
+            view = (self.fleet.prompt_depths() if kind == "prompt"
+                    else self.fleet.token_loads())
+            machine = idx if kind == "prompt" else self.cfg.n_prompt + idx
+            self._c_routes[kind].inc()
+            tel.push({"kind": "route", "t": self.queue.now,
+                      "machine": machine, "phase": kind, "chosen": idx,
+                      "router": self.router.name,
+                      "depths": [int(d) for d in view]})
         return idx
 
     def submit_request(self, req: Request) -> None:
@@ -791,9 +810,22 @@ class Cluster:
             if t[0] <= duration_s:
                 self.queue.schedule_in(period, periodic)
 
+        tel = self.telemetry
+
         def sampler(t=[0.0]):
             for m in self.machines:
                 m.task_count_samples.append(m.running_cpu_tasks)
+            if tel is not None:
+                now = self.queue.now
+                self._s_prompt_depth.observe(
+                    now, float(sum(len(p.queue) + p.busy
+                                   for p in self.prompt_instances)))
+                self._s_decode_load.observe(
+                    now, float(sum(ti.load
+                                   for ti in self.token_instances)))
+                self._s_cpu_tasks.observe(
+                    now, float(sum(m.running_cpu_tasks
+                                   for m in self.machines)))
             t[0] += sample_period_s
             if t[0] <= duration_s:
                 self.queue.schedule_in(sample_period_s, sampler)

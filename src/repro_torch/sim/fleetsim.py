@@ -26,10 +26,21 @@ Two backends share the same physics:
 Both backends run the three built-in fault models the reference
 vectorizes (`_FleetFaults`: guardband, machine-crash, transient-stall);
 on the torch backend failed cores join the gated mask the aging kernel
-settles with, and the guardband crossing reads the dVth it returns. Not
-ported yet, and refused with NotImplementedError: checkpoints
-(`checkpoint_dir`) and, on the torch backend, mixed-SKU fleets (ROADMAP
-A6). The numpy backend runs mixed fleets as the reference does.
+settles with, and the guardband crossing reads the dVth it returns.
+
+Both run mixed-SKU fleets as the reference's backends do: the core axis
+is padded to the widest SKU, and the padded lanes are masked everywhere.
+On the torch backend they join the gated mask, so the aging kernel sees
+them as unstressed and their dVth stays 0.
+
+Both write periodic checkpoints through `repro_torch.checkpoint.store`
+(``checkpoint_dir``) and resume from the newest one whose config
+fingerprint matches. The torch backend copies its state to the host once
+per checkpoint and never in between; a resumed run equals the
+uninterrupted one exactly, on either backend.
+
+Given a telemetry hub, `collect` writes the fleet's windowed aggregates
+and carbon rows into it, from the numpy state the run leaves.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.core import aging, temperature, variation
 from repro_torch.faults import get_fault_model
 from repro_torch.hardware.inventory import resolve_fleet
@@ -609,12 +621,18 @@ def _micro_step_torch(shape: _Shape, dyn, q, arr_row):
 
 
 def _gate_correction_torch(shape: _Shape, active_n, u, ov, dirty: bool,
-                           carbon):
-    """`_gate_correction` on tensors (uniform fleets). `dirty` is the
-    carbon gate's verdict for this period, decided on the host from the
-    same float32 values the jax backend compares."""
-    N = shape.num_cores
-    tasks = torch.clamp(u + ov, max=N * 1.0)
+                           carbon, n_vec=None):
+    """`_gate_correction` on tensors. `dirty` is the carbon gate's
+    verdict for this period, decided on the host from the same float32
+    values the jax backend compares. `n_vec` (ragged fleets) is the
+    float32 vector of per-machine core counts; None keeps the scalar
+    `shape.num_cores`."""
+    if n_vec is None:
+        N = shape.num_cores
+        tasks = torch.clamp(u + ov, max=N * 1.0)
+    else:
+        N = n_vec
+        tasks = torch.minimum(u + ov, n_vec)
     e = (active_n - tasks) / N
     f = torch.where(e >= 0.0, torch.tan(0.785 * e), torch.atan(1.55 * e))
     corr = torch.trunc(N * f)
@@ -747,23 +765,28 @@ class FleetEngine:
     * ``device`` (default "cuda") — where the torch backend runs. It
       raises if CUDA is asked for and absent: pass ``device="cpu"`` to
       run on the CPU.
-    * ``checkpoint_dir``, ``checkpoint_every_s``, ``resume`` — not
-      ported yet: each raises NotImplementedError.
+    * ``checkpoint_dir`` — directory for periodic fleet checkpoints
+      (written through ``repro_torch.checkpoint.store``).
+    * ``checkpoint_every_s`` (default 600) — simulated seconds between
+      checkpoints.
+    * ``resume`` (default True) — resume from the latest checkpoint in
+      ``checkpoint_dir`` whose config fingerprint matches.
     """
 
-    def __init__(self, cfg: ExperimentConfig):
+    def __init__(self, cfg: ExperimentConfig, telemetry=None):
         opts = cfg.engine_options
-        ckpt = sorted(set(opts) & {"checkpoint_dir", "checkpoint_every_s",
-                                   "resume"})
-        if ckpt:
-            raise NotImplementedError(
-                f"fleet checkpoints (engine_opts {ckpt}) are not ported "
-                f"yet: ROADMAP A6 (checkpoint store)")
-        unknown = set(opts) - {"dt_s", "backend", "device"}
+        unknown = set(opts) - {"dt_s", "backend", "device",
+                               "checkpoint_dir", "checkpoint_every_s",
+                               "resume"}
         if unknown:
             raise ValueError(f"unknown engine_opts {sorted(unknown)}")
         self.cfg = cfg
+        self.telemetry = telemetry
         self.backend = _resolve_backend(str(opts.get("backend", "auto")))
+        self.checkpoint_dir = opts.get("checkpoint_dir")
+        self.checkpoint_every_s = float(opts.get("checkpoint_every_s",
+                                                 600.0))
+        self.resume = bool(opts.get("resume", True))
         self.device = None
         if self.backend == "torch":
             self.device = torch.device(opts.get("device", "cuda"))
@@ -789,11 +812,6 @@ class FleetEngine:
         self.inventory = resolve_fleet(cfg.fleet, cfg.fleet_options,
                                        cfg.n_machines)
         inv = self.inventory
-        if inv is not None and self.backend == "torch":
-            raise NotImplementedError(
-                f"mixed fleets (fleet={cfg.fleet!r}) on the torch backend "
-                f"are not ported yet: ROADMAP A6 (ragged fleets); "
-                f"backend='numpy' runs them")
         if inv is None:
             self.params = aging.DEFAULT_PARAMS
             num_cores, core_counts = cfg.num_cores, None
@@ -852,6 +870,7 @@ class FleetEngine:
                     dtype=bool)
                 self.state["cum_haz"] = np.zeros(
                     (self.shape.n_machines, self.shape.num_cores))
+        self.resumed_from: int | None = None
 
     @staticmethod
     def _resolve_carbon_gate(cfg: ExperimentConfig):
@@ -902,10 +921,49 @@ class FleetEngine:
                               if requests else 1.0)
         arr = self._bin_trace(requests)
         self._requests = requests
+        start = 0
+        if self.checkpoint_dir and self.resume:
+            start = self._try_resume()
         if self.backend == "torch":
-            self._run_torch(arr, 0)
+            self._run_torch(arr, start)
         else:
-            self._run_numpy(arr, 0)
+            self._run_numpy(arr, start)
+
+    # -- checkpoint/resume --------------------------------------------- #
+    def _checkpoint(self, macro: int) -> None:
+        state = {k: np.asarray(v) for k, v in self.state.items()}
+        state["macro"] = np.asarray(macro, dtype=np.int64)
+        store.save(self.checkpoint_dir, macro, state,
+                   extra={"config": self.cfg.fingerprint(),
+                          "engine": "fleet", "backend": self.backend,
+                          "macro": macro})
+
+    def _try_resume(self) -> int:
+        if store.latest_step(self.checkpoint_dir) is None:
+            return 0
+        template = {k: np.asarray(v) for k, v in self.state.items()}
+        # step=None lets the store digest-verify the newest checkpoint
+        # and fall back (with a warning) to the newest earlier step that
+        # verifies, so one torn write doesn't strand the whole run.
+        restored = store.restore(self.checkpoint_dir, template)
+        # copy: restored arrays can be read-only views of the npz buffer
+        state = {k: np.array(v) for k, v in restored.items()}
+        step = int(state["macro"])      # save() labels steps by macro
+        meta = store.meta(self.checkpoint_dir, step)
+        if meta.get("config") != self.cfg.fingerprint():
+            raise ValueError(
+                f"checkpoint at {self.checkpoint_dir!r} step {step} was "
+                f"written by config {meta.get('config')!r}, not "
+                f"{self.cfg.fingerprint()!r}: refusing to resume a "
+                f"different experiment")
+        self.state = state
+        self.resumed_from = step
+        return int(self.state["macro"])
+
+    def _next_ckpt(self, macro: int) -> int:
+        per = max(1, int(round(self.checkpoint_every_s
+                               / self.cfg.idling_period_s)))
+        return (macro // per + 1) * per
 
     # -- numpy driver --------------------------------------------------- #
     def _advance_numpy(self, dvth, gated, tau, temp_c):
@@ -918,6 +976,7 @@ class FleetEngine:
         xp = np
         P = sh.n_prompt
         spp = sh.steps_per_period
+        next_ckpt = self._next_ckpt(start_macro)
         g_fn = self._carbon_gate[0].g_per_kwh if self._carbon_gate else None
         fx = self._faults
         pad = self._pad
@@ -1037,6 +1096,10 @@ class FleetEngine:
                                             st["dvth"],
                                             failed=fail_eff)
             st["macro"] = np.asarray(k + 1, dtype=np.int64)
+            if self.checkpoint_dir and k + 1 >= next_ckpt \
+                    and k + 1 < sh.n_macro:
+                self._checkpoint(k + 1)
+                next_ckpt = self._next_ckpt(k + 1)
 
     # -- torch driver --------------------------------------------------- #
     def _run_torch(self, arr: np.ndarray, start_macro: int) -> None:
@@ -1045,7 +1108,7 @@ class FleetEngine:
         needs from the host (trace rows, window indices, the carbon
         gate's verdict, the fault layer's columns and which periods hold
         a crash onset) is prepared before the loops, so they never wait
-        for the device."""
+        for the device; only a checkpoint copies the state to the host."""
         sh, dev = self.shape, self.device
         params = self.params
         spp = sh.steps_per_period
@@ -1084,7 +1147,15 @@ class FleetEngine:
         mw, res = st["mw"], st["res"]
         one = torch.ones((), dtype=torch.float32, device=dev)
         hist_one = torch.ones(sh.n_machines, dtype=torch.int64, device=dev)
-        n_vec = sh.num_cores
+        next_ckpt = self._next_ckpt(start_macro)
+        # ragged fleets: the padded lanes' mask and the per-machine core
+        # counts (float32), on the device; the uniform fleet keeps the
+        # scalar core count and issues no op of the ragged path
+        pad = (None if self._pad is None
+               else torch.tensor(self._pad, dtype=torch.bool, device=dev))
+        n_vec = (sh.num_cores if pad is None
+                 else torch.tensor(self._n_vec, dtype=torch.float32,
+                                   device=dev))
         # The fault layer's columns, uploaded once (the jax backend's scan
         # inputs); none is built without a fault model.
         fx = self._faults
@@ -1102,6 +1173,9 @@ class FleetEngine:
             # kernel sees them through this mask
             gated_eff = (st["gated"] | st["failed"]) if guard_on \
                 else st["gated"]
+            if pad is not None:
+                # padded lanes carry no silicon: never active, unstressed
+                gated_eff = gated_eff | pad
             f = f0 * (1.0 - st["dvth"] / params.headroom)
             active = ~gated_eff
             active_n = active.sum(dim=1).to(torch.float32)
@@ -1113,7 +1187,9 @@ class FleetEngine:
                 # finite nominal speed
                 sm = sm * cap_mult[k]
                 active_n = active_n * up_frac[k]
-                sm = torch.where(active_n > 0, sm, f.mean(dim=1))
+                f_all = f.mean(dim=1) if pad is None \
+                    else (f * ~pad).sum(dim=1) / n_vec
+                sm = torch.where(active_n > 0, sm, f_all)
             dyn = (sm[:P], sm[P:], sm, active_n)
             q = tuple(st[key] for key in _QUEUE_KEYS)
             if fx is not None and onset_any[k]:
@@ -1170,13 +1246,25 @@ class FleetEngine:
             # bin back to the host, a sync in every period
             st["idle_hist"].index_add_(0, bins, hist_one)
             if sh.gating:
-                corr = _gate_correction_torch(sh, active_n, u, ov,
-                                              dirty[k], carbon)
+                corr = _gate_correction_torch(
+                    sh, active_n, u, ov, dirty[k], carbon,
+                    n_vec=None if pad is None else n_vec)
+                # padded lanes behave like permanently failed cores:
+                # never gateable, never wakeable
+                fail_eff = failed
+                if pad is not None:
+                    fail_eff = pad if fail_eff is None else fail_eff | pad
                 st["gated"] = _apply_gating_torch(
                     corr, st["gated"],
                     torch.ceil(torch.minimum(u, active_n)), st["dvth"],
-                    failed=failed)
+                    failed=fail_eff)
             st["macro"] = k + 1
+            if self.checkpoint_dir and k + 1 >= next_ckpt \
+                    and k + 1 < sh.n_macro:
+                # the one host sync of a checkpoint period
+                self.state = state_to_numpy(st)
+                self._checkpoint(k + 1)
+                next_ckpt = self._next_ckpt(k + 1)
         self.state = state_to_numpy(st)
 
     # ------------------------------------------------------------------ #
@@ -1271,8 +1359,8 @@ class FleetEngine:
             ))
         return tuple(out)
 
-    def collect(self, carbon_model=None,
-                power_model=None) -> ExperimentResult:
+    def collect(self, carbon_model=None, power_model=None,
+                telemetry=None) -> ExperimentResult:
         sh, st = self.shape, self.state
         f = self.f0 * (1.0 - st["dvth"] / self.params.headroom)
         if self._pad is None:
@@ -1311,22 +1399,48 @@ class FleetEngine:
             engine="fleet",
             robustness=robustness,
             carbon_model=carbon_model, power_model=power_model,
+            telemetry=telemetry,
             fleet_inventory=self.inventory,
         )
+        if telemetry is not None:
+            self._emit_telemetry(telemetry)
         return result
+
+    def _emit_telemetry(self, hub) -> None:
+        """Windowed fleet aggregates into the hub's streaming series —
+        ring-buffered, so any horizon stays bounded."""
+        sh, st = self.shape, self.state
+        mw = self._window_means()
+        have = np.flatnonzero(st["mw_cnt"] > 0)
+        tl = hub.timeline("fleet/windows", maxlen=max(len(have), 1))
+        for i in have:
+            t = float(i * sh.mwin_s)
+            tl.record(t, (float(mw["mw_wait"][i]),
+                          float(mw["mw_iter"][i]),
+                          float(mw["mw_cpuw"][i]),
+                          float(st["mw_comps"][i])))
+        hub.set_gauge("fleet/completions", float(st["completions"]))
+        hub.set_gauge("fleet/gated_cores_final",
+                      float(self.state["gated"].sum()))
 
 
 # ---------------------------------------------------------------------- #
 # runner entry point
 # ---------------------------------------------------------------------- #
-def run_fleet_experiment(cfg: ExperimentConfig, *, carbon_model=None,
-                         power_model=None, scenario=None,
+def run_fleet_experiment(cfg: ExperimentConfig, *, telemetry=None,
+                         carbon_model=None, power_model=None,
+                         scenario=None,
                          requests=None) -> ExperimentResult:
     """Generate the trace, run the fleet engine, collect the result.
     `requests` short-circuits trace generation when the caller already
     has it. The engine is built first, so a configuration the port
-    refuses fails before the trace is generated."""
-    engine = FleetEngine(cfg)
+    refuses fails before the trace is generated. `telemetry` receives an
+    `engine` event and the engine's aggregates; the result carries no
+    summary of it, as in the reference (ROADMAP R7)."""
+    engine = FleetEngine(cfg, telemetry=telemetry)
+    if telemetry is not None:
+        telemetry.event("engine", 0.0, engine="fleet",
+                        backend=engine.backend)
     if requests is None:
         if scenario is None:
             from repro_torch.workloads import get_scenario
@@ -1336,7 +1450,7 @@ def run_fleet_experiment(cfg: ExperimentConfig, *, carbon_model=None,
                                      seed=cfg.seed)
     engine.run(requests)
     return engine.collect(carbon_model=carbon_model,
-                          power_model=power_model)
+                          power_model=power_model, telemetry=telemetry)
 
 
 __all__: list[str] = ["FleetEngine", "run_fleet_experiment",

@@ -4,8 +4,8 @@ from `repro.sim.metrics`.
 `collect` reads a finished event-engine `Cluster` (its fault layer's
 robustness scalars included), and the fleet engine feeds stacked arrays;
 both go through `price_and_build`, which prices per-machine aging and
-state residencies into the frozen `ExperimentResult`. The reference's
-telemetry carbon-window rows join with telemetry (ROADMAP A5).
+state residencies into the frozen `ExperimentResult` and, given a
+telemetry hub, writes the fleet's per-window carbon rows into it.
 """
 from __future__ import annotations
 
@@ -49,12 +49,10 @@ def collect(cluster, cfg: ExperimentConfig,
     `cfg.carbon_model` / `cfg.power_model` pass them in instead of
     constructing them twice. With a fault model other than "none" the
     cluster's `FaultCoordinator` supplies the robustness scalars.
-    `telemetry` must be None (ROADMAP A5, telemetry).
+    `telemetry` (a `repro_torch.telemetry.TelemetryHub`) additionally
+    receives the fleet's per-window power / energy / intensity /
+    operational-carbon rows.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "collect(telemetry=...): telemetry is not ported yet: "
-            "ROADMAP A5 (telemetry)")
     cvs, degs, idle_all = [], [], []
     task_samples = []
     for m in cluster.machines:
@@ -108,6 +106,7 @@ def collect(cluster, cfg: ExperimentConfig,
         carbon_model=carbon_model,
         power_model=power_model,
         fleet_inventory=cluster.inventory,
+        telemetry=telemetry,
     )
 
 
@@ -131,7 +130,8 @@ def price_and_build(cfg: ExperimentConfig, *,
                     robustness: dict | None = None,
                     carbon_model: CarbonModel | None = None,
                     power_model: PowerModel | None = None,
-                    fleet_inventory=None) -> ExperimentResult:
+                    fleet_inventory=None,
+                    telemetry=None) -> ExperimentResult:
     """Price per-machine aging + residencies into carbon/power columns
     and assemble the `ExperimentResult`. Shared by both engines: the
     event path (`collect`, from a finished `Cluster`) and the fleet
@@ -203,6 +203,9 @@ def price_and_build(cfg: ExperimentConfig, *,
     else:
         yearly_op = mean_power_w = float("nan")
 
+    if telemetry is not None:
+        _emit_carbon_windows(telemetry, residencies, power, intensity)
+
     return ExperimentResult(
         policy=cfg.policy,
         num_cores=cfg.num_cores,
@@ -247,6 +250,30 @@ def price_and_build(cfg: ExperimentConfig, *,
         provenance=Provenance(config_hash=cfg.fingerprint(),
                               seed=cfg.seed),
     )
+
+
+def _emit_carbon_windows(telemetry, residencies, power, intensity) -> None:
+    """Fleet per-window power/energy/intensity/operational-carbon rows
+    into the hub's `fleet/carbon_windows` timeline — the same windowed
+    integral `operational_g` prices, kept visible instead of collapsed
+    to one scalar. Row layout: `(window_s, fleet_power_w, energy_kwh,
+    g_per_kwh, operational_g)`; pure reads of frozen residencies."""
+    fleet: dict[float, list[float]] = {}    # t_start -> [elapsed, joules]
+    for r in residencies:
+        f = r.mean_busy_frequency
+        n = r.num_cores
+        for t_start, elapsed, bf, if_, gf in r.iter_windows():
+            w = fleet.setdefault(t_start, [0.0, 0.0])
+            w[0] = max(w[0], elapsed)
+            w[1] += power.machine_power_w(bf, if_, gf, f, n) * elapsed
+    tl = telemetry.timeline("fleet/carbon_windows",
+                            maxlen=max(len(fleet), 1))
+    for t_start in sorted(fleet):
+        elapsed, joules = fleet[t_start]
+        g = intensity.g_per_kwh(t_start + 0.5 * elapsed)
+        kwh = joules / 3.6e6
+        power_w = joules / elapsed if elapsed > 0 else 0.0
+        tl.record(t_start, (elapsed, power_w, kwh, g, kwh * g))
 
 
 def carbon_comparison(linux_metrics: ExperimentResult,

@@ -9,15 +9,20 @@ cluster under a policy (the counterpart of `repro.sim.runner`).
 `engine="event"` (the default, as in the reference) runs the bit-exact
 event loop of `repro_torch.sim.cluster` and `collect`s its result;
 `engine="fleet"` runs the vectorized fleet engine. Both run every
-built-in fault model (`repro_torch.faults`). Telemetry raises
-NotImplementedError here, and what an engine does not run yet raises
-there (checkpoints and ragged torch fleets in `FleetEngine`), each
-naming its ROADMAP item, rather than falling back to anything.
+built-in fault model (`repro_torch.faults`) and record into a telemetry
+hub (`repro_torch.telemetry`) when `cfg.telemetry` is set or the caller
+passes one. On the event engine the result then carries the hub's
+`summary()` and, with `export_dir` in `telemetry_opts`, its exports. On
+the fleet engine the hub is filled but, as in the reference, the result
+carries no summary and nothing is exported (ROADMAP R7).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import multiprocessing
+import os
+import time
 
 from repro_torch.carbon import get_carbon_model
 from repro_torch.core.policies import canonical_policy_name
@@ -32,6 +37,7 @@ from repro_torch.sim.fleetsim import run_fleet_experiment
 from repro_torch.sim.metrics import collect
 from repro_torch.sim.results import ExperimentResult, SweepResult
 from repro_torch.sim.routing import canonical_router_name
+from repro_torch.telemetry import TelemetryHub, export_run
 from repro_torch.workloads import canonical_scenario_name, get_scenario
 
 DEFAULT_SWEEP = ("linux", "least-aged", "proposed")
@@ -44,9 +50,12 @@ def run_experiment(cfg: ExperimentConfig,
             "run_experiment takes an ExperimentConfig (the pre-registry "
             "run_experiment(policy, **kwargs) signature was removed); "
             f"got {cfg!r}")
-    if telemetry is not None or cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet: ROADMAP A5 (telemetry)")
+    # `cfg.telemetry=True` builds a hub from `cfg.telemetry_opts`; a
+    # caller-supplied hub wins (so a long-lived hub can span several
+    # runs). None = zero-cost off.
+    hub = telemetry
+    if hub is None and cfg.telemetry:
+        hub = TelemetryHub.from_opts(cfg.telemetry_options)
     # Resolve every axis up front so a typo'd name fails before the
     # simulation runs; the resolved models are handed on.
     carbon_model = get_carbon_model(cfg.carbon_model, **cfg.carbon_options)
@@ -57,15 +66,63 @@ def run_experiment(cfg: ExperimentConfig,
     get_fault_model(cfg.fault_model, **cfg.fault_options)
     resolve_fleet(cfg.fleet, cfg.fleet_options, cfg.n_machines)
     if cfg.engine == "fleet":
-        return run_fleet_experiment(cfg, carbon_model=carbon_model,
+        return run_fleet_experiment(cfg, telemetry=hub,
+                                    carbon_model=carbon_model,
                                     power_model=power_model,
                                     scenario=scenario)
-    trace = scenario.generate(rate_rps=cfg.rate_rps,
-                              duration_s=cfg.duration_s, seed=cfg.seed)
-    cluster = Cluster(cfg)
-    cluster.run(trace, cfg.duration_s, sample_period_s=cfg.sample_period_s)
-    return collect(cluster, cfg, carbon_model=carbon_model,
-                   power_model=power_model)
+    if hub is None:
+        trace = scenario.generate(rate_rps=cfg.rate_rps,
+                                  duration_s=cfg.duration_s, seed=cfg.seed)
+        cluster = Cluster(cfg)
+        cluster.run(trace, cfg.duration_s,
+                    sample_period_s=cfg.sample_period_s)
+        return collect(cluster, cfg, carbon_model=carbon_model,
+                       power_model=power_model)
+    return _run_with_telemetry(cfg, hub, carbon_model, power_model,
+                               scenario)
+
+
+def _run_with_telemetry(cfg, hub, carbon_model, power_model,
+                        scenario) -> ExperimentResult:
+    """Telemetry-on path of the event engine: the same simulation, plus
+    per-phase wall-time / event-loop-throughput gauges and the post-run
+    export. Recording is pure observation, so the result's scalars stay
+    bit-identical to the hub-less path."""
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        hub.set_gauge(f"phase/{name}_wall_s", dt)
+        hub.event("phase", 0.0, phase=name, wall_s=dt)
+        return out
+
+    trace = phase("trace_gen", lambda: scenario.generate(
+        rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed))
+    cluster = phase("cluster_build", lambda: Cluster(cfg, telemetry=hub))
+    # The aging settler's backend, as a gauge that keeps the reference's
+    # name so the exports compare: 1.0 for the float32 accelerator
+    # settler ("jax" there, "torch" here), 0.0 for the numpy one.
+    backend = cluster.fleet_settler.backend
+    hub.event("engine", 0.0, engine="event", aging_backend=backend)
+    hub.set_gauge("engine/aging_backend_is_jax",
+                  1.0 if backend == "torch" else 0.0)
+    phase("sim_run", lambda: cluster.run(
+        trace, cfg.duration_s, sample_period_s=cfg.sample_period_s))
+    sim_wall = hub.gauge("phase/sim_run_wall_s").value
+    hub.set_gauge("events_processed", cluster.queue.processed)
+    if sim_wall > 0:
+        hub.set_gauge("events_per_sec", cluster.queue.processed / sim_wall)
+    result = phase("collect", lambda: collect(
+        cluster, cfg, carbon_model=carbon_model, power_model=power_model,
+        telemetry=hub))
+
+    summary = hub.summary()
+    export_dir = cfg.telemetry_options.get("export_dir")
+    if export_dir:
+        out_dir = os.path.join(str(export_dir),
+                               f"{cfg.policy}-{cfg.fingerprint()}")
+        summary["export"] = export_run(hub, out_dir, t_end=cfg.duration_s)
+    return dataclasses.replace(result, telemetry_summary=summary)
 
 
 def run_policy_sweep(

@@ -9,7 +9,10 @@ child interpreter (`torch_harness`: `repro.core` does not import on
 Python 3.12), and once on the port. Both are float64 numpy code on the
 host, so every number must be equal: the speeds `assign` returns, the
 settled frequencies, C-states, `frequency_cv`,
-`mean_frequency_degradation`, the metrics and the residency record.
+`mean_frequency_degradation`, the metrics and the residency record. With
+a telemetry hub attached, the hub's counters, series, timelines and
+events equal the reference's too, and the manager's numbers stay those
+of the run without a hub.
 """
 from __future__ import annotations
 
@@ -24,8 +27,11 @@ from repro_torch.core import (CoreManager, IdleCorrection,
                               available_policies, get_policy,
                               register_policy)
 from repro_torch.core.policies import CorePolicy
+from repro_torch.telemetry import TelemetryHub
 
 N_CORES = 16
+# the policy driven with a hub: it gates and wakes cores
+TELEMETRY_POLICY = "proposed-carbon-aware"
 POLICIES = {
     "proposed": ("proposed", {}),
     "linux": ("linux", {}),
@@ -75,9 +81,10 @@ import dataclasses
 from repro.core import CoreManager, get_policy, register_policy
 from repro.core.policies import CorePolicy
 
-def drive(policy, opts, ops, n):
+def drive(policy, opts, ops, n, hub=None):
     m = CoreManager(n, policy=policy, policy_opts=opts,
-                    rng=np.random.default_rng(0))
+                    rng=np.random.default_rng(0), telemetry=hub,
+                    telemetry_id=3)
     speeds = []
     for op in ops:
         name, args = op[0], op[1:]
@@ -98,6 +105,15 @@ def drive(policy, opts, ops, n):
 out = {name: drive(policy, opts, job["ops"], job["n"])
        for name, (policy, opts) in job["policies"].items()}
 
+from repro.telemetry import TelemetryHub
+hub = TelemetryHub(timeline_every=2)
+policy, opts = job["policies"][job["telemetry_policy"]]
+res = drive(policy, opts, job["ops"], job["n"], hub)
+out["telemetry"] = {
+    "drive": res, "summary": hub.summary(), "events": list(hub.events),
+    "timelines": {k: [[t, np.asarray(v).tolist()] for t, v in tl.samples()]
+                  for k, tl in hub.timelines.items()}}
+
 def error(fn):
     try:
         fn()
@@ -114,10 +130,11 @@ json.dump(out, sys.stdout)
 '''
 
 
-def _drive(policy, opts, ops, n):
+def _drive(policy, opts, ops, n, hub=None):
     """The port under the child's `drive`, field for field."""
     m = CoreManager(n, policy=policy, policy_opts=opts,
-                    rng=np.random.default_rng(0))
+                    rng=np.random.default_rng(0), telemetry=hub,
+                    telemetry_id=3)
     speeds = []
     for op in ops:
         name, args = op[0], op[1:]
@@ -139,7 +156,8 @@ def _drive(policy, opts, ops, n):
 @pytest.fixture(scope="module")
 def reference():
     job = {"ops": _script(), "n": N_CORES,
-           "policies": {k: list(v) for k, v in POLICIES.items()}}
+           "policies": {k: list(v) for k, v in POLICIES.items()},
+           "telemetry_policy": TELEMETRY_POLICY}
     return run_reference(_CHILD, job, timeout=300)
 
 
@@ -189,6 +207,25 @@ def test_idle_correction_defaults_are_fresh():
     assert len(a.to_idle) == len(a.to_wake) == 0 and not a
 
 
-def test_telemetry_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A5"):
-        CoreManager(4, telemetry=object())
+def test_telemetry_hooks_equal_reference(reference):
+    """Every probe of the hub equals the reference's, with the per-core
+    timelines on a stride of 2 periods; the manager's own numbers equal
+    the run without a hub."""
+    hub = TelemetryHub(timeline_every=2)
+    policy, opts = POLICIES[TELEMETRY_POLICY]
+    port = json.loads(json.dumps(_drive(policy, opts, _script(), N_CORES,
+                                        hub)))
+    ref = reference["telemetry"]
+    assert port == ref["drive"] == reference[TELEMETRY_POLICY]
+    assert hub.summary() == ref["summary"]
+    assert json.loads(json.dumps(list(hub.events))) == ref["events"]
+    assert {k: [[t, np.asarray(v).tolist()] for t, v in tl.samples()]
+            for k, tl in hub.timelines.items()} == ref["timelines"]
+    kinds = ref["summary"]["event_kinds"]
+    assert {"assign", "gate", "wake", "oversub", "promote",
+            "release"} <= set(kinds)
+    # the hub counts a task that finds no free core apart
+    assert hub.counter("oversub_assigns").value == \
+        port["metrics"]["oversub_assigns"] > 0
+    assert hub.counter("assigns").value + \
+        hub.counter("oversub_assigns").value == port["metrics"]["assigns"]

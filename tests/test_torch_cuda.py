@@ -2,9 +2,10 @@
 version, the fleet engine on CUDA against the same engine on the CPU and,
 under each fault model it vectorizes, against its numpy backend, the
 event engine's torch settler on CUDA against its numpy settler (under
-guardband faults too), the dense model and serving engine through the
-attention kernels, and the Mamba2 model and engine through the SSD scan
-kernel. Every test here needs an NVIDIA GPU and skips without one; this
+guardband faults too), a padded mixed fleet and a checkpoint resume on
+CUDA, the checkpoint store onto the card, the dense model and serving
+engine through the attention kernels, and the Mamba2 model and engine
+through the SSD scan kernel. Every test here needs an NVIDIA GPU and skips without one; this
 file imports neither jax nor the reference, so it runs on a machine that
 has only the port's dependencies:
 
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.aging import DEFAULT_PARAMS
 from repro_torch.kernels.aging_update import ops
@@ -29,7 +31,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_phases, ssd_scan_ref
 from repro_torch.models import Model, mamba2
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.sim import (Cluster, ExperimentConfig, FleetAgingSettler,
-                             collect, run_experiment)
+                             FleetEngine, collect, run_experiment)
 from repro_torch.workloads import get_scenario
 
 pytestmark = pytest.mark.cuda
@@ -190,6 +192,79 @@ def test_fleet_faults_on_cuda_match_numpy(cuda_device, name):
     assert _conserved(on_gpu)
     for key, delta in _backend_deltas(on_gpu, ref).items():
         assert delta < BACKEND_BOUNDS[key], key
+
+
+def test_mixed_fleet_on_cuda_matches_numpy(cuda_device):
+    """A padded mixed fleet (5 machines of 28 cores, 17 of 64) on the
+    card against the numpy backend at TestBackendAgreement's bounds: the
+    padded lanes reach the aging kernel as unstressed and stay at dVth
+    0.0 on both backends."""
+    cfg = ExperimentConfig(duration_s=60.0,
+                           fleet="xeon-28c:5+epyc-64c:rest")
+    reqs = get_scenario(cfg.scenario).generate(
+        rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
+    engines = {}
+    for backend in ("torch", "numpy"):
+        ops.KERNEL.launches = 0
+        eng = FleetEngine(cfg.with_engine("fleet", backend=backend))
+        eng.run(reqs)
+        engines[backend] = eng
+        assert ops.KERNEL.launches == (2 * 60 if backend == "torch" else 0)
+        pad = eng._pad
+        assert pad.sum() == 5 * 36
+        assert (eng.state["dvth"][pad] == 0.0).all()
+        assert (eng.state["dvth"][~pad] > 0.0).all()
+    on_gpu, ref = (engines[b].collect() for b in ("torch", "numpy"))
+    for key, delta in _backend_deltas(on_gpu, ref).items():
+        assert delta < BACKEND_BOUNDS[key], key
+
+
+@pytest.mark.parametrize("fault", [None, "guardband"])
+def test_fleet_resume_on_cuda_is_exact(cuda_device, tmp_path, fault):
+    """Kill-and-resume on the card (60 s, a checkpoint every 20 s, the
+    steps after the first deleted) equals the uninterrupted run exactly;
+    the resumed run launches the aging kernel only for the periods it
+    runs."""
+    kw = {"fault_model": fault, "fault_opts": {"margin": 0.012}} \
+        if fault else {}
+    ckpt = tmp_path / "ckpt"
+    cfg = ExperimentConfig(duration_s=60.0, **kw).with_engine(
+        "fleet", backend="torch", checkpoint_dir=str(ckpt),
+        checkpoint_every_s=20.0)
+    uninterrupted = run_experiment(cfg).to_dict()
+    steps = sorted(ckpt.iterdir())
+    assert [p.name for p in steps] == ["step_00000020", "step_00000040"]
+    for p in steps[1:]:
+        for f in p.iterdir():
+            f.unlink()
+        p.rmdir()
+    ops.KERNEL.launches = 0
+    resumed = run_experiment(cfg).to_dict()
+    assert ops.KERNEL.launches == 2 * 40
+    for d in (uninterrupted, resumed):
+        d["provenance"].pop("package_version", None)
+    assert resumed == uninterrupted
+
+
+def test_store_restores_onto_the_card(cuda_device, tmp_path):
+    """A CUDA-tensor template restores as tensors of its dtypes on the
+    card, bfloat16 bits included."""
+    src = {"w": torch.randn(3, 4, generator=torch.Generator().manual_seed(0)),
+           "b": torch.tensor([0.5, -1.25, 3.0], dtype=torch.bfloat16),
+           "n": np.arange(5, dtype=np.int64)}
+    store.save(str(tmp_path), 1, src)
+    template = {"w": torch.zeros(3, 4, device=cuda_device),
+                "b": torch.zeros(3, dtype=torch.bfloat16,
+                                 device=cuda_device),
+                "n": torch.zeros(5, dtype=torch.int32, device=cuda_device)}
+    back = store.restore(str(tmp_path), template)
+    for key in ("w", "b", "n"):
+        assert back[key].device.type == "cuda", key
+        assert back[key].dtype == template[key].dtype, key
+    assert torch.equal(back["w"].cpu(), src["w"])
+    assert torch.equal(back["b"].cpu().view(torch.int16),
+                       src["b"].view(torch.int16))
+    assert back["n"].tolist() == list(range(5))
 
 
 def _guardband_pair(settler_kw):

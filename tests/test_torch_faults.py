@@ -25,6 +25,7 @@ as JSON and fleet states as `.npz`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -41,6 +42,7 @@ from repro_torch.sim import (Cluster, ExperimentConfig, FleetAgingSettler,
                              state_to_numpy)
 from repro_torch.sim import runner
 from repro_torch.sim.cluster import MAX_RETRIES, FaultCoordinator
+from repro_torch.telemetry import TelemetryHub
 from repro_torch.workloads import get_scenario
 
 MIXED_FLEET = "xeon-28c:5+epyc-64c:rest"
@@ -73,6 +75,12 @@ EVENT = {
                             fault_opts={"margin": 0.012}),
     "robust-stall": dict(ROBUST, fault_model="transient-stall"),
 }
+
+# event cases also run with a telemetry hub, and the kinds of the
+# fault layer's four events (`FaultCoordinator`)
+TELEMETRY_CASES = ("small-crash-retries", "small-guardband")
+FAULT_KINDS = ["machine_crash", "machine_reboot", "fault_retry",
+               "core_failure"]
 
 #: `tests/test_faults.py::TestFleetEngineFaults` of the reference
 FLEET = dict(policy="proposed", duration_s=60.0, seed=7)
@@ -130,6 +138,15 @@ for name, kw in job["fleet"].items():
         out["jax"][name] = pack(run_experiment(
             cfg.with_engine("fleet", backend="jax")))
 
+from repro.telemetry import TelemetryHub
+out["telemetry"] = {}
+for name in job["telemetry"]:
+    hub = TelemetryHub()
+    run_experiment(ExperimentConfig(**job["event"][name]), telemetry=hub)
+    out["telemetry"][name] = {
+        "counters": hub.summary()["counters"],
+        "faults": [e for e in hub.events if e["kind"] in job["fault_kinds"]]}
+
 @register_fault_model("test-meteor")
 class MeteorFaults(FaultModel):
     pass
@@ -173,7 +190,8 @@ def reference(tmp_path_factory):
     state_path = str(tmp_path_factory.mktemp("ref") / "state")
     job = {"event": EVENT, "robust": ROBUST, "sweep": SWEEP,
            "fleet": FLEET_CONFIGS, "jax": list(FLEET_MODELS),
-           "state_macro": STATE_MACRO, "state_path": state_path}
+           "state_macro": STATE_MACRO, "state_path": state_path,
+           "telemetry": list(TELEMETRY_CASES), "fault_kinds": FAULT_KINDS}
     out = run_reference(_CHILD, job)
     out["states"] = {tag: dict(np.load(f"{state_path}_{tag}.npz"))
                      for tag in ("start", "numpy", "jax")}
@@ -718,9 +736,18 @@ class TestStateTransfer:
                                            atol=atol, err_msg=key)
 
 
-def test_cluster_refuses_telemetry_only():
-    """Faults run; a telemetry hub is still refused (ROADMAP A5)."""
-    cfg = ExperimentConfig(duration_s=1.0, fault_model="machine-crash")
-    assert Cluster(cfg).telemetry is None
-    with pytest.raises(NotImplementedError, match="A5"):
-        Cluster(cfg, telemetry=object())
+@pytest.mark.parametrize("name", TELEMETRY_CASES)
+def test_fault_events_reach_the_hub(reference, name):
+    """The coordinator's four pushes fire into a hub: its fault events
+    and every counter equal the reference's, and the result equals the
+    run without a hub."""
+    hub = TelemetryHub()
+    res = run_experiment(ExperimentConfig(**EVENT[name]), telemetry=hub)
+    ref = reference["telemetry"][name]
+    assert hub.summary()["counters"] == ref["counters"]
+    faults = [e for e in hub.events if e["kind"] in FAULT_KINDS]
+    assert json.loads(json.dumps(faults)) == ref["faults"]
+    assert faults
+    assert res.telemetry_summary["counters"] == ref["counters"]
+    _same(dataclasses.replace(res, telemetry_summary=None),
+          reference["event"][name])

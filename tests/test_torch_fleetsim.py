@@ -15,11 +15,13 @@ returns `ExperimentResult.to_dict()` as JSON and fleet states as `.npz`.
   `fleet_yearly_kgco2eq`), tightened to equal `completed` and 1e-6
   relative on the rest: the largest deltas observed over the four
   configs were 6.7e-8 on `mean_latency_s`, 0 on p50 degradation and
-  3.5e-8 on `fleet_yearly_kgco2eq`.
+  3.5e-8 on `fleet_yearly_kgco2eq`. The mixed fleet (`MIXED`, padded
+  to 64 cores) is held at the same bounds.
 """
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -42,8 +44,13 @@ CONFIGS = {
                               "policy_opts": {"carbon_aware": True,
                                               "dirty_frac": 0.5}},
 }
-# the copied hardware registry on the numpy backend (mixed SKUs)
+# a mixed-SKU fleet: 5 machines of 28 cores, 17 of 64, padded to 64
 MIXED = {"duration_s": 60.0, "fleet": "xeon-28c:5+epyc-64c:rest"}
+# tests/test_hardware.py::TestRaggedFleetEngine::test_faults_on_ragged_fleet
+RAGGED_CRASH = {"duration_s": 60.0, "rate_rps": 30.0, "seed": 2,
+                "n_prompt": 1, "n_token": 2, "fleet": "xeon-28c:2+epyc-64c:1",
+                "fault_model": "machine-crash",
+                "fault_opts": {"mttf_s": 20.0, "reboot_s": 10.0}}
 # relative bound, torch (CPU) vs jax: see the module docstring
 AGREE_RTOL = 1e-6
 # mid-run state: the reference runs this many idling periods on numpy,
@@ -95,7 +102,8 @@ def reference(tmp_path_factory):
     state_path = str(tmp_path_factory.mktemp("ref") / "state")
     runs = ([(kw, {"backend": "numpy"}) for kw in CONFIGS.values()]
             + [(kw, {"backend": "jax"}) for kw in CONFIGS.values()]
-            + [(MIXED, {"backend": "numpy"})])
+            + [(MIXED, {"backend": "numpy"}), (MIXED, {"backend": "jax"}),
+               (RAGGED_CRASH, {"backend": "jax"})])
     job = {"runs": runs, "state_macro": STATE_MACRO,
            "state_path": state_path}
     results = run_reference(_CHILD, job)["results"]
@@ -105,7 +113,8 @@ def reference(tmp_path_factory):
               for tag in ("start", "numpy", "jax")}
     return {"numpy": dict(zip(names, results[:n])),
             "jax": dict(zip(names, results[n:2 * n])),
-            "mixed": results[2 * n], "states": states}
+            "mixed": results[2 * n], "mixed_jax": results[2 * n + 1],
+            "ragged_crash_jax": results[2 * n + 2], "states": states}
 
 
 def _canonical(d: dict) -> str:
@@ -148,6 +157,44 @@ class TestTorchBackendAgreement:
                     ref["mean_degradation_percentiles"]["50"]) < AGREE_RTOL
         assert _rel(res.fleet_yearly_kgco2eq,
                     ref["fleet_yearly_kgco2eq"]) < AGREE_RTOL
+
+    def test_mixed_fleet_agrees_with_jax(self, reference):
+        res = run_experiment(_cfg(MIXED, backend="torch", device="cpu"))
+        ref = reference["mixed_jax"]
+        assert res.completed == ref["completed"]
+        assert _rel(res.mean_latency_s, ref["mean_latency_s"]) < AGREE_RTOL
+        assert _rel(res.mean_degradation_percentiles[50],
+                    ref["mean_degradation_percentiles"]["50"]) < AGREE_RTOL
+        assert _rel(res.fleet_yearly_kgco2eq,
+                    ref["fleet_yearly_kgco2eq"]) < AGREE_RTOL
+        assert res.per_machine_sku == tuple(ref["per_machine_sku"])
+
+    @pytest.mark.parametrize("backend", ["numpy", "torch"])
+    def test_padded_lanes_stay_unaged(self, backend):
+        """The padded lanes of the core axis carry no silicon: on torch
+        they reach the aging kernel as unstressed (gated) lanes, and
+        their dVth stays 0.0 through the run; no lane is gated there."""
+        cfg = _cfg(MIXED, backend=backend, device="cpu") \
+            if backend == "torch" else _cfg(MIXED, backend=backend)
+        eng = FleetEngine(cfg)
+        eng.run(get_scenario(cfg.scenario).generate(
+            rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed))
+        pad = eng._pad
+        assert pad.sum() == 5 * (64 - 28)
+        assert (eng.state["dvth"][pad] == 0.0).all()
+        assert (eng.state["dvth"][~pad] > 0.0).all()
+        assert not eng.state["gated"][pad].any()
+
+    def test_faults_on_ragged_fleet(self, reference):
+        """tests/test_hardware.py's ragged crash run, on torch, against
+        the reference's jax backend."""
+        res = run_experiment(_cfg(RAGGED_CRASH, backend="torch",
+                                  device="cpu"))
+        ref = reference["ragged_crash_jax"]
+        assert res.machine_crashes == ref["machine_crashes"] > 0
+        assert 0.0 < res.availability < 1.0
+        assert _rel(res.availability, ref["availability"]) < AGREE_RTOL
+        assert res.completed == ref["completed"]
 
     def test_torch_run_goes_through_the_aging_wrapper(self, monkeypatch):
         """Two settles per idling period, each one `advance_fleet` call."""
@@ -219,22 +266,37 @@ class TestStateTransfer:
                                            atol=1e-6, err_msg=key)
 
 
-class TestOutOfSlice:
-    """What the port does not run yet raises, and never falls back."""
+class TestMainPath:
+    """What the port once refused on the simulator's main path runs."""
 
-    @pytest.mark.parametrize("cfg,item", [
-        (ExperimentConfig(duration_s=1.0).with_telemetry(), "A5"),
-        (ExperimentConfig(duration_s=1.0).with_engine(
-            "fleet", backend="numpy", checkpoint_dir="ckpt"), "A6"),
-        (ExperimentConfig(duration_s=1.0).with_engine(
-            "fleet", backend="numpy").with_telemetry(), "A5"),
-        (ExperimentConfig(duration_s=1.0, fleet="xeon-28c:5+epyc-64c:rest")
-         .with_engine("fleet", backend="torch", device="cpu"), "A6"),
-    ], ids=["event-telemetry", "checkpoint", "telemetry",
-            "mixed-fleet-torch"])
-    def test_raises_not_implemented(self, cfg, item):
-        with pytest.raises(NotImplementedError, match=item):
-            run_experiment(cfg)
+    @pytest.mark.parametrize("case", [
+        "event-telemetry", "checkpoint", "telemetry", "mixed-fleet-torch"])
+    def test_runs(self, case, tmp_path):
+        cfg = ExperimentConfig(duration_s=4.0)
+        if case == "event-telemetry":
+            res = run_experiment(cfg.with_telemetry())
+            assert res.telemetry_summary["event_kinds"]["engine"] == 1
+        elif case == "checkpoint":
+            run_experiment(cfg.with_engine(
+                "fleet", backend="numpy", checkpoint_dir=str(tmp_path),
+                checkpoint_every_s=1.0))
+            assert sorted(os.listdir(tmp_path)) == [
+                f"step_{k:08d}" for k in (1, 2, 3)]
+        elif case == "telemetry":
+            res = run_experiment(cfg.with_engine(
+                "fleet", backend="numpy").with_telemetry())
+            assert res.telemetry_summary is None      # ROADMAP R7
+        else:
+            res = run_experiment(ExperimentConfig(
+                duration_s=4.0, fleet="xeon-28c:5+epyc-64c:rest")
+                .with_engine("fleet", backend="torch", device="cpu"))
+            assert res.completed > 0
+            assert res.per_machine_sku[:6] == ("xeon-28c",) * 5 \
+                + ("epyc-64c",)
+
+
+class TestOutOfSlice:
+    """What the port does not run raises, and never falls back."""
 
     def test_jax_backend_is_unknown(self):
         with pytest.raises(ValueError, match="'numpy', 'torch' or 'auto'"):

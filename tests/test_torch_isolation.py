@@ -47,6 +47,7 @@ def test_import_leaves_reference_unloaded():
             "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.mamba2;"
             "import repro_torch.models, repro_torch.configs, repro_torch.core;"
             "import repro_torch.serving.engine, repro_torch.launch.serve;"
+            "import repro_torch.telemetry, repro_torch.checkpoint.store;"
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -41,6 +41,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models import Model, params_from_jax
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.telemetry import TelemetryHub
 
 SEED = 0
 # (max_batch, max_len, policy, host cores, prompts, new tokens each)
@@ -310,12 +311,28 @@ def test_sampling_is_reproducible_per_seed(model):
     assert all(0 <= t < model.cfg.vocab_size for o in first for t in o)
 
 
-def test_out_of_slice_raises(model):
-    eng = InferenceEngine(model, max_batch=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.prometheus_text()
-    with pytest.raises(NotImplementedError, match="A5"):
-        InferenceEngine(model, telemetry=object())
+def test_prometheus_text_with_and_without_a_hub(model):
+    """Without a hub the snapshot holds the host gauges alone; a hub
+    adds the core manager's probes and leaves the tokens as they were."""
+    def serve(hub):
+        eng = InferenceEngine(model, max_batch=2, max_len=16,
+                              clock=lambda: 0.0, telemetry=hub)
+        eng.submit([1, 2, 3], 3)
+        eng.run_until_drained()
+        return eng
+
+    bare = serve(None)
+    lines = bare.prometheus_text().splitlines()
+    assert f"repro_host_assigns {bare.core_manager.metrics.assigns}" in lines
+    assert not any(line.endswith("_total 0") or "_total " in line
+                   for line in lines)
+    hub = TelemetryHub()
+    eng = serve(hub)
+    assert eng.host_cpu_report() == bare.host_cpu_report()
+    text = eng.prometheus_text()
+    assert f"repro_assigns_total {eng.core_manager.metrics.assigns}" in \
+        text.splitlines()
+    assert "repro_m0_active_cores_count" in text
 
 
 def test_serve_cli_on_cpu(capsys):

@@ -36,6 +36,7 @@ from repro_torch.sim import (Cluster, ExperimentConfig, FleetAgingSettler,
                              fleetstate, run_experiment, run_policy_sweep,
                              settle_fleet)
 from repro_torch.sim import runner
+from repro_torch.telemetry import NULL_HUB, TelemetryHub
 from repro_torch.workloads import get_scenario
 
 #: `benchmarks/drift_gate.py::mini_grid_config`
@@ -342,11 +343,23 @@ class TestRunner:
         for key in serial:
             assert parallel[key].scalars() == serial[key].scalars()
 
-    def test_cluster_and_collect_refuse_telemetry(self):
-        cfg = ExperimentConfig(duration_s=1.0)
-        with pytest.raises(NotImplementedError, match="A5"):
-            Cluster(cfg, telemetry=object())
-        cluster = Cluster(cfg)
-        cluster.run([], cfg.duration_s)
-        with pytest.raises(NotImplementedError, match="A5"):
-            collect(cluster, cfg, telemetry=object())
+    def test_cluster_and_collect_take_a_hub(self):
+        """`Cluster` routes into the hub and samples its three fleet
+        series; `collect` adds the carbon windows; the result is the one
+        without a hub."""
+        cfg = ExperimentConfig(duration_s=6.0, rate_rps=20.0)
+        trace = get_scenario(cfg.scenario).generate(
+            rate_rps=cfg.rate_rps, duration_s=cfg.duration_s, seed=cfg.seed)
+        results = []
+        hub = TelemetryHub()
+        for tel in (None, hub):
+            cluster = Cluster(cfg, telemetry=tel)
+            cluster.run(trace, cfg.duration_s)
+            results.append(collect(cluster, cfg, telemetry=tel).to_dict())
+        assert results[0] == results[1]
+        s = hub.summary()
+        assert s["counters"]["routes_prompt"] == len(trace)
+        assert {"fleet/prompt_queue_depth", "fleet/decode_load",
+                "fleet/cpu_tasks", "m0/active_cores"} <= set(s["series"])
+        assert s["timelines"]["fleet/carbon_windows"]["points"] > 0
+        assert Cluster(cfg, telemetry=NULL_HUB).telemetry is None
