@@ -25,10 +25,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    shapes of the reference's `TestFlashAttentionKernel` and
    `TestDecodeAttentionKernel` (float32 and bfloat16, its sliding windows
    in both) and on the shapes Llama-3-8B gives them in phase 4 (with and
-   without a window), timed as in phase 2, and beside them one PyTorch
-   call that computes the same function (`scaled_dot_product_attention`,
-   `library_ms`), timed the same way and used nowhere in the port; each
-   line gives the kernel's time over SDPA's. flash_attention runs its
+   without a window) and MiniCPM3 gives them in phase 7 (MLA: q/k head
+   dim 96, v head dim 64, 40 heads over 40; prefill q (1, 1,024, 40,
+   96) causal, decode q (4, 40, 96) against caches (4, 1,536, 40, 96) and
+   (4, 1,536, 40, 64)), in both dtypes, timed as in phase 2, and beside
+   them one PyTorch call that computes the same function
+   (`scaled_dot_product_attention`, `library_ms`, the backend it chose
+   named), timed the same way and used nowhere in the port; each line
+   gives the kernel's time over SDPA's. flash_attention runs its
    tensor-core kernel in bfloat16 and its CUDA-core kernel in float32.
 2c. The SSD scan kernel against its plain versions: on the shapes of
    the reference's `TestSSDScanKernel` (float32 and bfloat16) against
@@ -114,8 +118,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    SSD scan goes through the ssd_scan kernel (64 launches per request;
    the decode step has no kernel), and the same two holds of the kernel
    path against the plain path (`ssd_chunked`) follow.
+6. Granite-MoE-3B-A800M at full width (32 layers, 40 experts top-8,
+   bfloat16, seed 0) served the same way, with the same traffic: an MoE
+   chat endpoint on one card. Attention goes through B2 and B3 (GQA at
+   head dim 64), the experts through torch's batched products, as the
+   reference leaves them to XLA. The same two holds follow; in float32
+   the top-k routes of the two paths are compared (see F32_RTOL).
+7. MiniCPM3-4B at full width (62 layers, MLA, bfloat16, seed 0) served
+   the same way: B2 and B3 at MLA's (96, 64) instance, the latent cache
+   expanded to K and V each decode step (`mla_absorb=False`, the
+   default). Then a short run on the same model and requests with
+   `mla_absorb=True`, which attends against the latent in plain PyTorch:
+   no B3 launch in its decode; its tokens are printed beside the default
+   run's. The same two holds of the default path follow.
 
-Phases 3, 3b, 3c, 3d and each serving phase set every kernel's launch count
+Phases 3, 3b, 3c, 3d and each serving run set every kernel's launch count
 to 0 just before each main run and read them all just after: a kernel of
 the path must have run exactly as often as the path calls it, and no
 other kernel at all.
@@ -203,37 +220,45 @@ SETTLE_TOL = dict(rtol=2e-6, atol=1e-8)
 SETTLE_T, SETTLE_DT = 5.0, 0.7
 SETTLE_CALLS = 200
 
-# (b, h, hkv, s, d, window, dtype): the reference's TestFlashAttentionKernel
-# shapes in float32 and bfloat16, its windows in both dtypes (bfloat16 runs
-# the tensor-core kernel, float32 the CUDA-core one), a window at the serve
-# shape, and Llama-3-8B's prefill (one request of S tokens: 32 heads over 8
-# KV heads, head_dim 128)
-FLASH_CASES = ([(b, h, hkv, s, d, 0, dt)
+# (b, h, hkv, s, d, dv, window, dtype): the reference's
+# TestFlashAttentionKernel shapes in float32 and bfloat16, its windows in
+# both dtypes (bfloat16 runs the tensor-core kernel, float32 the CUDA-core
+# one), a window at the serve shape, Llama-3-8B's prefill (one request of S
+# tokens: 32 heads over 8 KV heads, head_dim 128), and MiniCPM3's (MLA: 40
+# heads over 40, q/k head dim 96, v head dim 64) in both dtypes
+FLASH_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                 for dt in ("float32", "bfloat16")
                 for b, h, hkv, s, d in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                                         (1, 4, 1, 128, 128),
                                         (2, 2, 2, 192, 64))]
-               + [(1, 2, 2, 256, 64, w, dt) for dt in ("float32", "bfloat16")
-                  for w in (32, 128)]
-               + [(1, 32, 8, 1000, 128, 256, "bfloat16")]
-               + [(1, 32, 8, s, 128, 0, "bfloat16")
-                  for s in (128, 1000, 1024)])
-FLASH_MAIN = (1, 32, 8, 1024, 128, 0, "bfloat16")
-# (b, h, hkv, s, d, window, dtype): the reference's
+               + [(1, 2, 2, 256, 64, 64, w, dt)
+                  for dt in ("float32", "bfloat16") for w in (32, 128)]
+               + [(1, 32, 8, 1000, 128, 128, 256, "bfloat16")]
+               + [(1, 32, 8, s, 128, 128, 0, "bfloat16")
+                  for s in (128, 1000, 1024)]
+               + [(1, 40, 40, 1024, 96, 64, 0, dt)
+                  for dt in ("float32", "bfloat16")])
+FLASH_MAIN = (1, 32, 8, 1024, 128, 128, 0, "bfloat16")
+FLASH_MLA = (1, 40, 40, 1024, 96, 64, 0, "bfloat16")
+# (b, h, hkv, s, d, dv, window, dtype): the reference's
 # TestDecodeAttentionKernel shapes and its window in both dtypes, a window
-# at the serve shape, and Llama-3-8B's decode (4 slots against the
-# 1,536-position cache, pos drawn in [1, 1536])
-DECODE_CASES = ([(b, h, hkv, s, d, 0, dt)
+# at the serve shape, Llama-3-8B's decode (4 slots against the
+# 1,536-position cache, pos drawn in [1, 1536]), and MiniCPM3's (40 heads
+# over 40, 96 / 64) in both dtypes
+DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                  for dt in ("float32", "bfloat16")
                  for b, h, hkv, s, d in ((1, 4, 4, 512, 64),
                                          (4, 8, 2, 1024, 64),
                                          (2, 8, 1, 512, 128),
                                          (2, 4, 4, 640, 64))]
-                + [(2, 4, 4, 512, 64, 128, dt)
+                + [(2, 4, 4, 512, 64, 64, 128, dt)
                    for dt in ("float32", "bfloat16")]
-                + [(4, 32, 8, 1536, 128, 300, "bfloat16"),
-                   (4, 32, 8, 1536, 128, 0, "bfloat16")])
-DECODE_MAIN = (4, 32, 8, 1536, 128, 0, "bfloat16")
+                + [(4, 32, 8, 1536, 128, 128, 300, "bfloat16"),
+                   (4, 32, 8, 1536, 128, 128, 0, "bfloat16")]
+                + [(4, 40, 40, 1536, 96, 64, 0, dt)
+                   for dt in ("float32", "bfloat16")])
+DECODE_MAIN = (4, 32, 8, 1536, 128, 128, 0, "bfloat16")
+DECODE_MLA = (4, 40, 40, 1536, 96, 64, 0, "bfloat16")
 
 
 # (b, l, h, p, n, chunk, dtype): the reference's TestSSDScanKernel shapes
@@ -268,11 +293,15 @@ def attention_tol(dtype: str) -> dict:
         else dict(rtol=2e-5, atol=2e-5)
 
 
-# phases 4 and 5: the serving cells, one traffic for both models
+# phases 4 to 7: the serving cells, one traffic for every model
 SERVE = dict(arch="llama3-8b", seed=0, max_batch=4, max_len=1536,
              policy="proposed", host_cores=16, requests=8,
              prompt_lens=(128, 1024), new_tokens=32)
 SERVE_MAMBA = dict(SERVE, arch="mamba2-2.7b")
+SERVE_MOE = dict(SERVE, arch="granite-moe-3b-a800m")
+SERVE_MLA = dict(SERVE, arch="minicpm3-4b")
+# phase 7's run with mla_absorb=True: the same requests, fewer new tokens
+ABSORB_NEW_TOKENS = 8
 # Phase 4 holds the kernel path against the plain path (the kernels'
 # plain versions, `use_kernel=False`) on the engine's tokens, two ways:
 # - float32, the same architecture at full width (weights from seed 1) on
@@ -286,7 +315,23 @@ SERVE_MAMBA = dict(SERVE, arch="mamba2-2.7b")
 #   measured in the same run: the plain path again on the same model with
 #   its embedding table perturbed by relative Gaussian noise of 2^-9
 #   (seed 1), below one bfloat16 rounding. Both are maxima over all steps.
+# Top-k routing (phase 6) is discontinuous: a float32 difference of about
+# 1e-6 in h can swap a token's 8th and 9th expert, and a prefill pass
+# takes some 110,000 routes. In bfloat16, where rounding decides such
+# near-ties either way, the MoE kernel path and the noisy plain path
+# replay the plain path's routes (`_Routes`), so that the noise-floor hold
+# weighs numerics alone; the top-k the kernel path would take on those
+# routes is counted against them and printed, not held. The MoE float32
+# hold compares the routes of the two paths, (token, layer) by (token,
+# layer), as expert sets:
+# - a step (the prefill, or one decode step) is held at F32_RTOL/F32_ATOL
+#   when every route it takes agrees; a step with a differing route is
+#   counted and printed, not held;
+# - the phase fails if more than ROUTE_FLIP_MAX of all routes differ, or
+#   if no step is held.
+# The dense, Mamba2 and MLA holds are the rules above, unchanged.
 F32_RTOL, F32_ATOL = 1e-3, 1e-3
+ROUTE_FLIP_MAX = 1e-3
 F32_REQUESTS = 2
 NOISE_REL = 2.0 ** -9
 
@@ -451,20 +496,33 @@ def _peak(dtype: str) -> float:
     return BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S
 
 
+def sdpa_backend(torch, q, k, v, mask, causal) -> str:
+    """The name of the backend that `scaled_dot_product_attention` picks
+    for these (B, H, S, D) inputs (the flash backend refuses a v head dim
+    other than q's)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, causal,
+                                         scale=None, enable_gqa=True)
+        return SDPBackend(choice).name.lower()
+    except (AttributeError, TypeError, ValueError, RuntimeError):
+        return "not determined"
+
+
 def _flash_case(torch, np, case):
-    """(kernel, plain, library, bytes, operations) of one
+    """(kernel, plain, library, SDPA's backend, bytes, operations) of one
     flash_attention case: three calls on the same inputs, each giving
-    (B, S, H, D), and the work one call must do: q, k and v read once
-    and the output written once; two products of 2 * D operations for
-    every (query, visible key) pair."""
+    (B, S, H, Dv), and the work one call must do: q, k and v read once
+    and the output written once; products of 2 * D and 2 * Dv operations
+    for every (query, visible key) pair."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import attention_bhsd
-    b, h, hkv, s, d, window, dtype = case
+    b, h, hkv, s, d, dv, window, dtype = case
     rng = np.random.default_rng(s)
     q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda").to(getattr(torch, dtype))
-               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+               for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
     qb, kb, vb = (t.transpose(1, 2) for t in (q, k, v))
     pos = torch.arange(s, device="cuda")
     band = (pos[None, :] <= pos[:, None]) & (
@@ -479,25 +537,26 @@ def _flash_case(torch, np, case):
     visible = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     return (lambda: attention_bhsd(q, k, v, window=window),
             lambda: attention_bhsd(q, k, v, window=window, use_kernel=False),
-            library, (2 * b * s * h * d + 2 * b * s * hkv * d) * size,
-            4 * d * b * h * visible)
+            library, sdpa_backend(torch, qb, kb, vb, band, band is None),
+            (b * s * h * (d + dv) + b * s * hkv * (d + dv)) * size,
+            2 * (d + dv) * b * h * visible)
 
 
 def _decode_case(torch, np, case):
-    """(kernel, plain, library, bytes, operations) of one
+    """(kernel, plain, library, SDPA's backend, bytes, operations) of one
     decode_attention case, pos drawn in [1, S]: three calls on the same
-    inputs, each giving (B, H, D), and the work one call must do: the
-    visible K and V rows, q, pos and the output, each once; 4 * D
+    inputs, each giving (B, H, Dv), and the work one call must do: the
+    visible K and V rows, q, pos and the output, each once; 2 * (D + Dv)
     operations per (head, visible position)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import decode_bhd
-    b, h, hkv, s, d, window, dtype = case
+    b, h, hkv, s, d, dv, window, dtype = case
     rng = np.random.default_rng(s)
     q, kc, vc = (torch.tensor(rng.standard_normal(shape),
                               dtype=torch.float32,
                               device="cuda").to(getattr(torch, dtype))
-                 for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+                 for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
     lens = rng.integers(1, s + 1, b)
     pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
     idx = torch.arange(s, device="cuda")[None, :]
@@ -517,21 +576,26 @@ def _decode_case(torch, np, case):
     return (lambda: decode_bhd(q, kc, vc, pos, window=window),
             lambda: decode_bhd(q, kc, vc, pos, window=window,
                                use_kernel=False),
-            library, (2 * seen * hkv * d + 2 * b * h * d) * size + 4 * b,
-            4 * d * h * seen)
+            library, sdpa_backend(torch, qb, kb, vb, mask, False),
+            (seen * hkv * (d + dv) + b * h * (d + dv)) * size + 4 * b,
+            2 * (d + dv) * h * seen)
 
 
 def phase_attention_kernels(torch, np):
     """flash_attention and decode_attention (kernels) vs their plain
     versions on the card; SDPA timed beside them. Returns the kernels
-    line rows of the main-path shapes."""
+    line rows of the main-path shapes: Llama-3-8B's under each kernel's
+    name, MiniCPM3's (MLA) under "<name>/mla"."""
     rows = {}
-    for name, cases, main_case, make in (
-            ("flash_attention", FLASH_CASES, FLASH_MAIN, _flash_case),
-            ("decode_attention", DECODE_CASES, DECODE_MAIN, _decode_case)):
+    for name, cases, mains, make in (
+            ("flash_attention", FLASH_CASES,
+             {FLASH_MAIN: "", FLASH_MLA: "/mla"}, _flash_case),
+            ("decode_attention", DECODE_CASES,
+             {DECODE_MAIN: "", DECODE_MLA: "/mla"}, _decode_case)):
         for case in cases:
-            b, h, hkv, s, d, window, dtype = case
-            kernel, plain, library, nbytes, ops = make(torch, np, case)
+            b, h, hkv, s, d, dv, window, dtype = case
+            kernel, plain, library, backend, nbytes, ops = make(torch, np,
+                                                                case)
             out, ref, lib = kernel(), plain(), library()
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
@@ -550,19 +614,19 @@ def phase_attention_kernels(torch, np):
                    "library_ms": graph_ms(library), "max_abs_err": err,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations"}
-            log(f"[{name}] b={b} h={h} hkv={hkv} s={s} d={d} "
+                   else "operations", "library_backend": backend}
+            log(f"[{name}] b={b} h={h} hkv={hkv} s={s} d={d} dv={dv} "
                 f"window={window} {dtype}: max_abs_err {err:.3e} "
                 f"({attention_tol(dtype)}) ok; per call on the device "
                 f"(CUDA graph) kernel {row['ms'] * 1e3:.3f} us, plain "
                 f"{row['plain_ms'] * 1e3:.3f} us, SDPA "
                 f"{row['library_ms'] * 1e3:.3f} us (kernel / SDPA "
-                f"{row['ms'] / row['library_ms']:.3f}; SDPA's max_abs_err vs "
-                f"plain {lib_err:.3e}); eager wrapper "
-                f"{row['wrapper_ms'] * 1e3:.2f} us; bound "
+                f"{row['ms'] / row['library_ms']:.3f}; SDPA's backend "
+                f"{backend}, its max_abs_err vs plain {lib_err:.3e}); eager "
+                f"wrapper {row['wrapper_ms'] * 1e3:.2f} us; bound "
                 f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
-            if case == main_case:
-                rows[name] = row
+            if case in mains:
+                rows[name + mains[case]] = row
     return rows
 
 
@@ -1191,12 +1255,14 @@ def phase_faults(torch, kernels, reqs):
     return by_path
 
 
-def phase_serve(torch, np, serve, kernels, expected):
-    """One serving cell (`SERVE` or `SERVE_MAMBA`) on the card through the
-    port's engine; then the kernel path held against the plain path.
-    `kernels`: the `CudaKernel` of every kernel of the port; `expected(cfg,
-    decode_iterations)`: the launches of each of them that the path must
-    make. Returns those launches."""
+def phase_serve(torch, np, serve, kernels, expected, after=None):
+    """One serving cell (`SERVE`, `SERVE_MAMBA`, `SERVE_MOE` or
+    `SERVE_MLA`) on the card through the port's engine; then the kernel
+    path held against the plain path. `kernels`: the `CudaKernel` of every
+    kernel of the port; `expected(cfg, decode_iterations)`: the launches of
+    each of them that the path must make; `after(model, prompts, tokens,
+    tag)`, if given, runs after the cell, before the holds. Returns those
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving.engine import InferenceEngine
@@ -1212,6 +1278,13 @@ def phase_serve(torch, np, serve, kernels, expected):
     shape = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads" if cfg.num_heads
              else f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
                   f"P {cfg.ssm_head_dim}, state N {cfg.ssm_state}")
+    if cfg.num_experts:
+        shape += (f", {cfg.num_experts} experts of d_ff {cfg.d_ff}, top-"
+                  f"{cfg.experts_per_token}")
+    if cfg.attn_type == "mla":
+        shape += (f", MLA: q/k head dim {cfg.qk_nope_dim + cfg.qk_rope_dim}"
+                  f", v {cfg.v_head_dim}, latent {cfg.kv_lora_rank} + "
+                  f"{cfg.qk_rope_dim}")
     log(f"{tag} {cfg.num_layers} layers, d_model {cfg.d_model}, {shape}, "
         f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), {cfg.dtype}: "
         f"{n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB) "
@@ -1307,6 +1380,8 @@ def phase_serve(torch, np, serve, kernels, expected):
     # the hooks' closures hold the engine: freed here, not by a later
     # garbage collection, so that the next cell finds the card empty
     del eng, reqs, real_prefill, real_decode, hub
+    if after is not None:
+        after(model, prompts, tokens, tag)
     _hold_bf16(torch, model, prompts, tokens, tag)
     del model
     torch.cuda.empty_cache()
@@ -1338,20 +1413,78 @@ def _rel_l2(a, b):
     return ((a - b).norm(dim=-1) / b.norm(dim=-1)).amax().item()
 
 
+class _Routes:
+    """While entered, records the top-k expert ids of every MoE layer
+    call for each token (one (B, S, k) tensor per call, in call order and
+    top-k order). Given `replay` (such a record of another run), it routes
+    each call to the recorded ids instead of its own top-k, with the gates
+    this call's probabilities at those ids, renormalised as `moe_ffn`
+    renormalises them, and still records its own top-k. Two runs that
+    replay one record differ by their numerics alone, not by which expert
+    won a near-tie."""
+
+    def __init__(self, torch, replay=None):
+        from repro_torch.models import moe
+        self.torch, self.moe, self.replay, self.calls = torch, moe, replay, []
+
+    def __enter__(self):
+        torch, moe, calls = self.torch, self.moe, self.calls
+        real = self.real = moe._route
+        pending = None if self.replay is None else iter(self.replay)
+
+        def route(x, params, cfg):
+            if pending is None:
+                gate, idx, aux = real(x, params, cfg)
+                calls.append(idx)
+                return gate, idx, aux
+            idx = next(pending)
+            probs = moe.router_probs(x, params["router"])
+            calls.append(torch.topk(probs, cfg.experts_per_token,
+                                    dim=-1).indices)
+            gate = probs.gather(-1, idx)
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            return gate, idx, moe.load_balance_loss(probs, idx,
+                                                    cfg.num_experts)
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+
+
+def _routed(torch, model, prompt, tokens, use_kernel, replay=None):
+    """`_teacher_forced` under `_Routes`: (logits, the routes taken)."""
+    with _Routes(torch, replay) as routes:
+        out = _teacher_forced(torch, model, prompt, tokens, use_kernel)
+    return out, routes.calls
+
+
 def _hold_bf16(torch, model, prompts, tokens, tag):
-    """bfloat16: kernel path vs plain path, against the noise floor."""
+    """bfloat16: kernel path vs plain path, against the noise floor. For
+    MoE the kernel path and the noisy plain path replay the plain path's
+    routes (`_Routes`), so both distances measure numerics: top-k routing
+    is discontinuous, and a near-tie that bfloat16 rounding decides either
+    way moves a token to another expert whatever its cause. The top-k the
+    kernel path would take on those routes is counted against them."""
     t0 = time.perf_counter()
+    moe_model = bool(model.cfg.num_experts)
     kernel_d, noise_d, max_err, flips, steps = 0.0, 0.0, 0.0, 0, 0
-    plains = []
+    routes, route_flips = 0, 0
+    plains, plain_routes = [], []
     for prompt, toks in zip(prompts, tokens):
-        k = _teacher_forced(torch, model, prompt, toks, True)
-        p = _teacher_forced(torch, model, prompt, toks, False)
+        p, taken = _routed(torch, model, prompt, toks, False)
+        k, own = _routed(torch, model, prompt, toks, True,
+                         replay=taken if moe_model else None)
+        if moe_model:
+            r, f, _ = _route_flips(torch, own, taken, model.cfg.num_layers)
+            routes, route_flips = routes + r, route_flips + f
         kernel_d = max(kernel_d, _rel_l2(k, p))
         max_err = max(max_err, float((k - p).abs().max()))
         flips += int((p.argmax(-1) != torch.tensor(toks, device="cuda"))
                      .sum())
         steps += len(toks)
         plains.append(p)
+        plain_routes.append(taken if moe_model else None)
     table = model.embed.data
     noise = torch.randn(table.shape, generator=torch.Generator(
         "cuda").manual_seed(1), device="cuda")
@@ -1359,48 +1492,154 @@ def _hold_bf16(torch, model, prompts, tokens, tag):
         table.dtype)
     del noise
     try:
-        for prompt, toks, p in zip(prompts, tokens, plains):
-            noisy = _teacher_forced(torch, model, prompt, toks, False)
+        for prompt, toks, p, taken in zip(prompts, tokens, plains,
+                                          plain_routes):
+            noisy, _ = _routed(torch, model, prompt, toks, False,
+                               replay=taken)
             noise_d = max(noise_d, _rel_l2(noisy, p))
     finally:
         model.embed.data = table
+    pinned = ""
+    if moe_model:
+        pinned = (f" (MoE: both on the plain path's routes; there the "
+                  f"kernel path's own top-k would differ at {route_flips} "
+                  f"of {routes} (token, layer), {route_flips / routes:.3e})")
     log(f"{tag} bfloat16, kernel vs plain path on the engine's tokens: "
         f"{steps} steps, max |logit diff| {max_err:.4f}, max relative L2 "
         f"{kernel_d:.4e}; noise floor (plain path, embeddings perturbed by "
-        f"{NOISE_REL:.3g} relative) {noise_d:.4e}; plain greedy tokens that "
-        f"differ from the engine's: {flips}/{steps} "
+        f"{NOISE_REL:.3g} relative) {noise_d:.4e}{pinned}; plain greedy "
+        f"tokens that differ from the engine's: {flips}/{steps} "
         f"({time.perf_counter() - t0:.1f} s)")
     if not kernel_d <= noise_d:
         raise AssertionError(f"kernel path leaves the bfloat16 noise floor: "
                              f"{kernel_d:.4e} > {noise_d:.4e}")
 
 
+def _route_flips(torch, kernel_calls, plain_calls, n_layers):
+    """(routes, differing routes, per step the count of its differing
+    routes) of one teacher-forced request: the prefill (step 0), then one
+    decode step each, n_layers calls a step. A route differs when its set
+    of experts does."""
+    routes, flips, per_step = 0, 0, []
+    for i in range(0, len(kernel_calls), n_layers):
+        step = 0
+        for a, b in zip(kernel_calls[i:i + n_layers],
+                        plain_calls[i:i + n_layers]):
+            routes += a.shape[0] * a.shape[1]
+            step += int((a.sort(-1).values != b.sort(-1).values)
+                        .any(-1).sum())
+        flips += step
+        per_step.append(step)
+    return routes, flips, per_step
+
+
 def _hold_f32(torch, cfg, prompts, tokens, tag):
-    """float32 at full width: kernel path vs plain path, tight."""
+    """float32 at full width: kernel path vs plain path, tight; for MoE
+    on the steps whose routes agree (see F32_RTOL)."""
     import dataclasses
 
     from repro_torch.models import Model
     t0 = time.perf_counter()
     model = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda",
                   seed=1)
-    worst, max_err, steps = -math.inf, 0.0, 0
+    worst, max_err, steps, held = -math.inf, 0.0, 0, 0
+    routes, flips, flip_steps, unheld_err = 0, 0, 0, 0.0
     for prompt, toks in list(zip(prompts, tokens))[:F32_REQUESTS]:
-        k = _teacher_forced(torch, model, prompt, toks, True)
-        p = _teacher_forced(torch, model, prompt, toks, False)
+        k, on_kernel = _routed(torch, model, prompt, toks, True)
+        p, on_plain = _routed(torch, model, prompt, toks, False)
         diff = (k - p).abs()
-        max_err = max(max_err, float(diff.max()))
-        worst = max(worst, float((diff - F32_ATOL - F32_RTOL * p.abs())
-                                 .max()))
+        margin = (diff - F32_ATOL - F32_RTOL * p.abs()).amax(-1)
+        agree = torch.ones(len(toks), dtype=torch.bool, device=k.device)
+        if cfg.num_experts:
+            r, f, per_step = _route_flips(torch, on_kernel, on_plain,
+                                          cfg.num_layers)
+            routes, flips = routes + r, flips + f
+            agree = torch.tensor([n == 0 for n in per_step],
+                                 device=k.device)
+            flip_steps += int((~agree).sum())
+            if (~agree).any():
+                unheld_err = max(unheld_err, float(diff[~agree].max()))
+        if agree.any():
+            max_err = max(max_err, float(diff[agree].max()))
+            worst = max(worst, float(margin[agree].max()))
         steps += len(toks)
+        held += int(agree.sum())
+    routing = ""
+    if cfg.num_experts:
+        routing = (f"; routes (token, layer): {flips} of {routes} differ "
+                   f"({flips / routes:.3e}, limit {ROUTE_FLIP_MAX}), on "
+                   f"{flip_steps} steps, held {held} of {steps} steps "
+                   f"(max |logit diff| on the others {unheld_err:.3e})")
     log(f"{tag} float32 at full width, kernel vs plain path: {steps} "
         f"steps of {F32_REQUESTS} requests, max |logit diff| {max_err:.3e} "
         f"(bound {F32_ATOL} + {F32_RTOL} |plain|, worst margin "
-        f"{worst:.3e}) ({time.perf_counter() - t0:.1f} s)")
+        f"{worst:.3e}){routing} ({time.perf_counter() - t0:.1f} s)")
     del model
     torch.cuda.empty_cache()
+    if cfg.num_experts and flips > ROUTE_FLIP_MAX * routes:
+        raise AssertionError(f"{flips} of {routes} routes differ between "
+                             f"the kernel and the plain path")
+    if held == 0:
+        raise AssertionError("no step held: every step took a differing "
+                             "route")
     if worst > 0:
         raise AssertionError(f"float32 kernel path leaves the bound "
                              f"(worst margin {worst:.3e})")
+
+
+def absorbed_run(torch, kernels, serve):
+    """Phase 7's `after`: the same model and requests served again with
+    `mla_absorb=True` for ABSORB_NEW_TOKENS tokens each: the prefill goes
+    through B2 as before, the decode attends against the latent in plain
+    PyTorch (no B3 launch); its tokens are printed beside the default
+    run's."""
+    import dataclasses
+
+    from repro_torch.serving.engine import InferenceEngine
+
+    def run(model, prompts, tokens, tag):
+        cfg = model.cfg
+        model.cfg = dataclasses.replace(cfg, mla_absorb=True)
+        try:
+            eng = InferenceEngine(
+                model, max_batch=serve["max_batch"],
+                max_len=serve["max_len"], policy=serve["policy"],
+                num_host_cores=serve["host_cores"])
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            reqs = []
+            for prompt in prompts:
+                eng.submit(prompt, max_new_tokens=ABSORB_NEW_TOKENS)
+                reqs.append(eng.pending[-1])
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            del eng
+        finally:
+            model.cfg = cfg
+        want = {"aging_update": 0, "ssd_scan": 0, "decode_attention": 0,
+                "flash_attention": cfg.num_layers * serve["requests"]}
+        same = sum(a == b for req, toks in zip(reqs, tokens)
+                   for a, b in zip(req.output, toks))
+        new = serve["requests"] * ABSORB_NEW_TOKENS
+        log(f"{tag} mla_absorb=True: {serve['requests']} requests, "
+            f"{ABSORB_NEW_TOKENS} new each: wall {wall:.3f} s "
+            f"({new / wall:.1f} tok/s); launches {launches} (expected "
+            f"{want}); tokens equal to the default run's at {same} of "
+            f"{new} positions")
+        for req, toks in zip(reqs, tokens):
+            log(f"{tag}   absorbed {req.output} | default "
+                f"{toks[:ABSORB_NEW_TOKENS]}")
+        if launches != want:
+            raise AssertionError(f"the absorbed decode did not run as "
+                                 f"expected: {launches} != {want}")
+        if any(len(r.output) != ABSORB_NEW_TOKENS for r in reqs) or any(
+                not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+            raise AssertionError("an absorbed request did not get its "
+                                 "tokens")
+    return run
 
 
 def main() -> int:
@@ -1450,9 +1689,14 @@ def main() -> int:
         return {"aging_update": 0, "flash_attention": 0,
                 "decode_attention": 0,
                 "ssd_scan": cfg.num_layers * SERVE_MAMBA["requests"]}
-    served = phase_serve(torch, np, SERVE, every, dense)
-    launches.update(flash_attention=served["flash_attention"],
-                    decode_attention=served["decode_attention"])
+    attention_by_path = {"flash_attention": {}, "decode_attention": {}}
+    for serve, after in ((SERVE, None), (SERVE_MOE, None),
+                         (SERVE_MLA, absorbed_run(torch, every, SERVE_MLA))):
+        served = phase_serve(torch, np, serve, every, dense, after)
+        for name, paths in attention_by_path.items():
+            paths[f"serve-{serve['arch']}"] = served[name]
+    for name, paths in attention_by_path.items():
+        launches[name] = sum(paths.values())
     served = phase_serve(torch, np, SERVE_MAMBA, every, ssm)
     launches["ssd_scan"] = served["ssd_scan"]
     src_dir = "src/repro_torch/kernels"
@@ -1467,13 +1711,21 @@ def main() -> int:
               "source": f"{src_dir}/flash_attention/flash_attention.cu",
               "replaces":
                   "src/repro/kernels/flash_attention/flash_attention.py:72",
-              "launches": launches["flash_attention"]},
+              "launches": launches["flash_attention"],
+              "launches_by_path": attention_by_path["flash_attention"],
+              "mla": dict(attention_rows["flash_attention/mla"],
+                          launches=attention_by_path["flash_attention"][
+                              "serve-minicpm3-4b"])},
              **attention_rows["flash_attention"]),
         dict({"name": "decode_attention", "route": "cuda",
               "source": f"{src_dir}/decode_attention/decode_attention.cu",
               "replaces":
                   "src/repro/kernels/decode_attention/decode_attention.py:71",
-              "launches": launches["decode_attention"]},
+              "launches": launches["decode_attention"],
+              "launches_by_path": attention_by_path["decode_attention"],
+              "mla": dict(attention_rows["decode_attention/mla"],
+                          launches=attention_by_path["decode_attention"][
+                              "serve-minicpm3-4b"])},
              **attention_rows["decode_attention"]),
         dict({"name": "ssd_scan", "route": "cuda",
               "source": f"{src_dir}/ssd_scan/ssd_scan.cu",

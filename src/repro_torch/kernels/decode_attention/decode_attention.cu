@@ -16,7 +16,12 @@
 // position: a few operations per byte, far below the H100's 295. At the
 // serving shape (4 sequences, 32 heads over 8, a 1,536-row cache, pos
 // drawn in [1, 1536], bf16) that is 6.8 MB: 2.044 us at 3.35 TB/s. The
-// work per call is tiny, so what the design fights is latency.
+// work per call is tiny, so what the design fights is latency. Instances:
+// q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128, 128), and
+// MLA's (96, 64): each lane holds D / 32 elements of q and k rows and Dv /
+// 32 of v rows and of the accumulator. MLA's 40 heads over 40 cache heads
+// (a group of 1) run in the kG = 4 instance, three of its four head lanes
+// idle.
 //
 // Design: the Pallas kernel walks the cache of one sequence in one grid
 // row; at batch 4 that would be 4 CTAs on 132 SMs. Here the grid is
@@ -82,10 +87,10 @@ struct Strides {
 
 // Shared memory: the ring of K and V tiles; after the walk, the same bytes
 // hold each warp's (m, l, acc) per head for the merge.
-template <typename T, int D, int kG>
+template <typename T, int DQK, int DV, int kG>
 constexpr size_t smem_bytes() {
-  constexpr size_t ring = sizeof(T) * kStages * 2 * kBK * D;
-  constexpr size_t warps = sizeof(float) * kWarps * kG * (D + 2);
+  constexpr size_t ring = sizeof(T) * kStages * kBK * (DQK + DV);
+  constexpr size_t warps = sizeof(float) * kWarps * kG * (DV + 2);
   constexpr size_t splits = sizeof(float) * 2 * kMaxSplits * kG;
   constexpr size_t most = ring > warps ? ring : warps;
   return most > splits ? most : splits;
@@ -132,27 +137,31 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
 }
 
 // All threads: the cp.async copies of key tile t of the slice [s_lo, s_hi)
-// into its ring stage, rows past s_hi zero-filled.
-template <typename T, int D>
+// into its ring stage (kBK rows of K, DQK wide, then kBK rows of V, DV
+// wide), rows past s_hi zero-filled.
+template <typename T, int DQK, int DV>
 __device__ __forceinline__ void load_tile(T* ring, const T* kb,
                                            const T* vb, int64_t k_s,
                                            int64_t v_s, int t, int s_lo,
                                            int s_hi) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;  // 16-byte chunks per row
+  constexpr int kChunksK = DQK / kVec;  // 16-byte chunks per row
+  constexpr int kChunksV = DV / kVec;
   const int k0 = s_lo + t * kBK;
   const int valid = min(kBK, s_hi - k0);
-  T* kd = ring + (t % kStages) * 2 * kBK * D;
-  T* vd = kd + kBK * D;
-  for (int idx = threadIdx.x; idx < 2 * kBK * kChunks; idx += kThreads) {
-    const int is_v = idx / (kBK * kChunks);
-    const int rem = idx % (kBK * kChunks);
-    const int r = rem / kChunks;
-    const int c = (rem % kChunks) * kVec;
+  T* kd = ring + (t % kStages) * kBK * (DQK + DV);
+  T* vd = kd + kBK * DQK;
+  for (int idx = threadIdx.x; idx < kBK * (kChunksK + kChunksV);
+       idx += kThreads) {
+    const bool is_v = idx >= kBK * kChunksK;
+    const int chunks = is_v ? kChunksV : kChunksK;
+    const int rem = is_v ? idx - kBK * kChunksK : idx;
+    const int r = rem / chunks;
+    const int c = (rem % chunks) * kVec;
     const T* base = is_v ? vb : kb;
     const T* src = r < valid ? base + (k0 + r) * (is_v ? v_s : k_s) + c
                              : base;
-    hopper::cp_async16((is_v ? vd : kd) + r * D + c, src,
+    hopper::cp_async16((is_v ? vd + r * DV : kd + r * DQK) + c, src,
                        r < valid ? 16 : 0);
   }
 }
@@ -177,8 +186,9 @@ __device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
   return v[0];
 }
 
-// kG: query heads per cache head that the registers hold (>= H / Hkv).
-template <typename T, int D, int kG>
+// DQK: the head dim of q and k; DV: that of v and o. kG: query heads per
+// cache head that the registers hold (>= H / Hkv).
+template <typename T, int DQK, int DV, int kG>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -190,7 +200,8 @@ __global__ void __launch_bounds__(kThreads)
                             Strides st, int n_heads, int n_kv_heads,
                             int max_len, int window, int n_split,
                             float scale_log2) {
-  constexpr int E = D / 32;              // elements of a row per lane
+  constexpr int E = DQK / 32;            // elements of a q or k row per lane
+  constexpr int EV = DV / 32;            // elements of a v or o row per lane
   // keys scored at once: one (key, head) score per lane
   constexpr int kSub = 32 / kG;
   static_assert(kSub * kG == 32 && kWarpKeys % kSub == 0,
@@ -221,8 +232,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* vb = v + b * st.v_b + hk * st.v_h;
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) load_tile<T, D>(ring, kb, vb, st.k_s, st.v_s, t, s_lo,
-                                      s_hi);
+    if (t < n_tiles)
+      load_tile<T, DQK, DV>(ring, kb, vb, st.k_s, st.v_s, t, s_lo, s_hi);
     hopper::cp_async_commit();
   }
 
@@ -241,11 +252,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   // the running max and sum of head `lane % kG` (the same in every lane of
   // that head), and the accumulator of every head over this lane's columns
-  float m = kNegInf, l = 0.0f, acc[kG][E];
+  float m = kNegInf, l = 0.0f, acc[kG][EV];
 #pragma unroll
   for (int g = 0; g < kG; ++g)
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.0f;
+    for (int e = 0; e < EV; ++e) acc[g][e] = 0.0f;
   // after transpose_sum this lane holds the score of key lane / kG of the
   // step, head lane % kG
   const int lane_key = lane / kG;
@@ -254,12 +265,12 @@ __global__ void __launch_bounds__(kThreads)
     hopper::cp_async_wait<kStages - 2>();
     __syncthreads();  // tile t has landed; tile t - 1's readers are done
     if (t + kStages - 1 < n_tiles)
-      load_tile<T, D>(ring, kb, vb, st.k_s, st.v_s, t + kStages - 1, s_lo,
-                       s_hi);
+      load_tile<T, DQK, DV>(ring, kb, vb, st.k_s, st.v_s, t + kStages - 1,
+                            s_lo, s_hi);
     hopper::cp_async_commit();
 
-    const T* kd = ring + (t % kStages) * 2 * kBK * D;
-    const T* vd = kd + kBK * D;
+    const T* kd = ring + (t % kStages) * kBK * (DQK + DV);
+    const T* vd = kd + kBK * DQK;
 #pragma unroll
     for (int j0 = 0; j0 < kWarpKeys; j0 += kSub) {
       const int r0 = warp * kWarpKeys + j0;  // first key of the step
@@ -267,7 +278,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
         float kv[E];
-        load_vec<E>(kd + (r0 + j) * D + lane * E, kv);
+        load_vec<E>(kd + (r0 + j) * DQK + lane * E, kv);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
           float x = 0.0f;
@@ -296,17 +307,17 @@ __global__ void __launch_bounds__(kThreads)
       for (int g = 0; g < kG; ++g) {
         const float a = __shfl_sync(0xffffffffu, alpha, g);
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] *= a;
+        for (int e = 0; e < EV; ++e) acc[g][e] *= a;
       }
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        float vv[E];
-        load_vec<E>(vd + (r0 + j) * D + lane * E, vv);
+        float vv[EV];
+        load_vec<EV>(vd + (r0 + j) * DV + lane * EV, vv);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
           const float pj = __shfl_sync(0xffffffffu, p, j * kG + g);
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] += pj * vv[e];
+          for (int e = 0; e < EV; ++e) acc[g][e] += pj * vv[e];
         }
       }
     }
@@ -316,7 +327,7 @@ __global__ void __launch_bounds__(kThreads)
 
   float* wm = reinterpret_cast<float*>(smem_raw);  // kWarps x kG
   float* wl = wm + kWarps * kG;                    // kWarps x kG
-  float* wacc = wl + kWarps * kG;                  // kWarps x kG x D
+  float* wacc = wl + kWarps * kG;                  // kWarps x kG x DV
   if (lane < groups) {
     wm[warp * kG + lane] = m;
     wl[warp * kG + lane] = l;
@@ -325,16 +336,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int g = 0; g < kG; ++g)
     if (g < groups)
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        wacc[(warp * kG + g) * D + lane * E + e] = acc[g][e];
+      for (int e = 0; e < EV; ++e)
+        wacc[(warp * kG + g) * DV + lane * EV + e] = acc[g][e];
   __syncthreads();
 
   // this CTA's partials: the 4 warps merged
   const int64_t slot =
       (static_cast<int64_t>(b) * n_kv_heads + hk) * n_split + split;
-  for (int idx = tid; idx < groups * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
+  for (int idx = tid; idx < groups * DV; idx += kThreads) {
+    const int g = idx / DV;
+    const int d = idx % DV;
     float mm = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, wm[w * kG + g]);
@@ -343,9 +354,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int w = 0; w < kWarps; ++w) {
       const float f = exp2f(wm[w * kG + g] - mm);
       ll += wl[w * kG + g] * f;
-      aa += wacc[(w * kG + g) * D + d] * f;
+      aa += wacc[(w * kG + g) * DV + d] * f;
     }
-    part_acc[(slot * groups + g) * D + d] = aa;
+    part_acc[(slot * groups + g) * DV + d] = aa;
     if (d == 0) {
       part_m[slot * groups + g] = mm;
       part_l[slot * groups + g] = ll;
@@ -385,25 +396,25 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   // every load of a batch of 4 slices in flight at once
-  constexpr int kPer = (kG * D + kThreads - 1) / kThreads;
+  constexpr int kPer = (kG * DV + kThreads - 1) / kThreads;
   float aa[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) aa[i] = 0.0f;
 #pragma unroll 4
   for (int sp = 0; sp < n_split; ++sp) {
-    const float* src = part_acc + (base + sp) * groups * D;
+    const float* src = part_acc + (base + sp) * groups * DV;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int idx = tid + i * kThreads;
-      if (idx < groups * D)
-        aa[i] += __ldcg(src + idx) * sm[sp * groups + idx / D];
+      if (idx < groups * DV)
+        aa[i] += __ldcg(src + idx) * sm[sp * groups + idx / DV];
     }
   }
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int idx = tid + i * kThreads;
-    if (idx < groups * D)
-      o[b * st.o_b + (hk * groups + idx / D) * st.o_h + idx % D] =
+    if (idx < groups * DV)
+      o[b * st.o_b + (hk * groups + idx / DV) * st.o_h + idx % DV] =
           from_f32<T>(aa[i]);
   }
   if (tid == 0) *counter = 0;  // ready for the next launch
@@ -423,16 +434,16 @@ struct Buffers {
   void* o;
 };
 
-template <typename T, int D, int kG>
+template <typename T, int DQK, int DV, int kG>
 cudaError_t launch_typed(const Buffers& x, const Strides& st,
                          const Shape& sh, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D, kG>();
+  constexpr size_t smem = smem_bytes<T, DQK, DV, kG>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_attention_kernel<T, D, kG>,
+      decode_attention_kernel<T, DQK, DV, kG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(sh.n_split, sh.n_kv_heads, sh.batch);
-  decode_attention_kernel<T, D, kG><<<grid, kThreads, smem, stream>>>(
+  decode_attention_kernel<T, DQK, DV, kG><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x.q), static_cast<const T*>(x.k),
       static_cast<const T*>(x.v), x.pos, x.part_acc, x.part_m, x.part_l,
       x.counters, static_cast<T*>(x.o), st, sh.n_heads, sh.n_kv_heads,
@@ -440,39 +451,45 @@ cudaError_t launch_typed(const Buffers& x, const Strides& st,
   return cudaGetLastError();
 }
 
-// kG: the query heads per cache head rounded up to 4, 8 or 16.
-template <typename T, int D>
+// kG: the query heads per cache head rounded up to 4, 8 or 16. MLA's
+// group of 1 (40 heads over 40) takes kG = 4, with 3 of every 4 (key,
+// head) lanes of a step idle.
+template <typename T, int DQK, int DV>
 cudaError_t launch_groups(const Buffers& x, const Strides& st,
                           const Shape& sh, cudaStream_t stream) {
   const int groups = sh.n_heads / sh.n_kv_heads;
-  if (groups <= 4) return launch_typed<T, D, 4>(x, st, sh, stream);
-  if (groups <= 8) return launch_typed<T, D, 8>(x, st, sh, stream);
-  return launch_typed<T, D, kMaxGroups>(x, st, sh, stream);
+  if (groups <= 4) return launch_typed<T, DQK, DV, 4>(x, st, sh, stream);
+  if (groups <= 8) return launch_typed<T, DQK, DV, 8>(x, st, sh, stream);
+  return launch_typed<T, DQK, DV, kMaxGroups>(x, st, sh, stream);
 }
 
+// The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128, 128)
+// and MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64).
 template <typename T>
-cudaError_t launch_dim(int head_dim, const Buffers& x, const Strides& st,
-                       const Shape& sh, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch_groups<T, 32>(x, st, sh, stream);
-    case 64:
-      return launch_groups<T, 64>(x, st, sh, stream);
-    case 128:
-      return launch_groups<T, 128>(x, st, sh, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
+                       const Strides& st, const Shape& sh,
+                       cudaStream_t stream) {
+  if (head_dim == 32 && v_head_dim == 32)
+    return launch_groups<T, 32, 32>(x, st, sh, stream);
+  if (head_dim == 64 && v_head_dim == 64)
+    return launch_groups<T, 64, 64>(x, st, sh, stream);
+  if (head_dim == 128 && v_head_dim == 128)
+    return launch_groups<T, 128, 128>(x, st, sh, stream);
+  if (head_dim == 96 && v_head_dim == 64)
+    return launch_groups<T, 96, 64>(x, st, sh, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, H, D), caches (B, S, Hkv, D) and o (B, H, D) of one dtype (0:
-// float32, 1: bfloat16), read and written through the 10 element strides in
+// q (B, H, D), k_cache (B, S, Hkv, D), v_cache (B, S, Hkv, Dv) and o (B,
+// H, Dv) of one dtype (0: float32, 1: bfloat16), with (D, Dv) =
+// (head_dim, v_head_dim) one of the instances of launch_dim, read and
+// written through the 10 element strides in
 // `strides` (q: batch, head; k and v: batch, position, head; o: batch,
 // head); pos (B,) int32 on the device; n_split slices per (sequence,
 // cache head). The workspace holds
-// B * Hkv * n_split * (H / Hkv) * (D + 2) floats: part_acc, part_m and
+// B * Hkv * n_split * (H / Hkv) * (Dv + 2) floats: part_acc, part_m and
 // part_l; `counters` holds B * Hkv int32 tickets, zero before the launch
 // and zero again after it. Launches one kernel on `stream` and returns a
 // CUDA error code: 0 when the launch was accepted. The caller checks
@@ -483,7 +500,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        float* part_l, int* counters, void* o,
                                        const int64_t* strides, int batch,
                                        int n_heads, int n_kv_heads,
-                                       int max_len, int head_dim, int dtype,
+                                       int max_len, int head_dim,
+                                       int v_head_dim, int dtype,
                                        int window, int n_split,
                                        float scale, void* stream) {
   if (batch <= 0 || n_heads <= 0) return static_cast<int>(cudaSuccess);
@@ -500,9 +518,9 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dim<float>(head_dim, x, st, sh, s);
+    err = launch_dim<float>(head_dim, v_head_dim, x, st, sh, s);
   else if (dtype == 1)
-    err = launch_dim<__nv_bfloat16>(head_dim, x, st, sh, s);
+    err = launch_dim<__nv_bfloat16>(head_dim, v_head_dim, x, st, sh, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

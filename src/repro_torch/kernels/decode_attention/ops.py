@@ -5,7 +5,9 @@ On CUDA tensors it launches the hand-written split-KV kernel
 (`decode_attention.cu`: one launch, which also merges the slices) on the
 current stream; on CPU tensors, or with `use_kernel=False`, it runs the
 plain PyTorch version (`ref.py`). There is no other fallback: any other
-device, dtype, head_dim or layout raises. `pos` stays on the device:
+device, dtype, pair of head dims or layout raises; the instances are B2's
+(`flash_attention.ops.HEAD_DIMS`: equal q/k and v head dims of 32, 64 or
+128, and MLA's 96 with 64). `pos` stays on the device:
 nothing on the path reads it back to the host.
 
 The kernel's last CTA of each (sequence, cache head) merges the slices; it
@@ -25,8 +27,9 @@ import torch
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref_explicit)
-from repro_torch.kernels.flash_attention.ops import (DTYPES, HEAD_DIMS,
-                                                     _aligned)
+from repro_torch.kernels.flash_attention.ops import (DTYPES, _aligned,
+                                                     check_head_dims,
+                                                     check_instance)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -34,7 +37,7 @@ KERNEL = CudaKernel(
     "decode_attention", Path(__file__).with_name("decode_attention.cu"),
     "decode_attention_launch",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64), _I,
-     _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
+     _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
 
 MAX_GROUPS = 16      # query heads per cache head the kernel holds
 SMS = 132            # streaming multiprocessors of an H100 SXM
@@ -89,12 +92,8 @@ def _check(q, k_cache, v_cache) -> None:
         raise ValueError(f"decode_bhd: caches {tuple(k_cache.shape)} and "
                          f"{tuple(v_cache.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if v_cache.shape[3] != d and q.device.type != "cpu":
-        raise ValueError(f"decode_bhd: v_cache's head dim "
-                         f"{v_cache.shape[3]} differs from q's {d}; the "
-                         f"kernel has no such instance and there is no "
-                         f"plain route off the CPU yet (MLA: ROADMAP "
-                         f"A10/A11)")
+    if q.device.type != "cpu":
+        check_head_dims("decode_bhd", d, v_cache.shape[3])
     if k_cache.shape[2] == 0 or h % k_cache.shape[2]:
         raise ValueError(f"decode_bhd: {h} query heads do not group over "
                          f"{k_cache.shape[2]} cache heads")
@@ -116,13 +115,13 @@ def launch(q, k_cache, v_cache, pos, out, *, window, scale, stream) -> int:
     """Launch the kernel on `stream` for checked tensors; returns the CUDA
     error code (0: accepted)."""
     b, h, d = q.shape
-    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    s, hkv, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
     split = n_splits(b, hkv, s)
     parts = b * hkv * split * (h // hkv)
-    work = torch.empty(parts * (d + 2), dtype=torch.float32,
+    work = torch.empty(parts * (dv + 2), dtype=torch.float32,
                        device=q.device)
-    acc, m, l = work[:parts * d], work[parts * d:parts * (d + 1)], \
-        work[parts * (d + 1):]
+    acc, m, l = work[:parts * dv], work[parts * dv:parts * (dv + 1)], \
+        work[parts * (dv + 1):]
     tickets = counters(q.device, b * hkv)
     strides = (ctypes.c_int64 * 10)(
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
@@ -131,16 +130,17 @@ def launch(q, k_cache, v_cache, pos, out, *, window, scale, stream) -> int:
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), tickets.data_ptr(),
         out.data_ptr(), strides,
-        b, h, hkv, s, d, DTYPES[q.dtype], window, split, scale, stream)
+        b, h, hkv, s, d, dv, DTYPES[q.dtype], window, split, scale, stream)
 
 
 def decode_bhd(q, k_cache, v_cache, pos, *, window=0, use_kernel=True,
                scale=None):
     """q: (B, H, D); k_cache (B, S, Hkv, D), v_cache (B, S, Hkv, Dv); pos
     () or (B,) valid lengths (the current token already written at
-    pos - 1). Returns (B, H, Dv) in q's dtype; Dv may differ from D (MLA)
-    on CPU tensors only. `scale` defaults to D ** -0.5 (Python double, rounded to
-    float32 by the kernel)."""
+    pos - 1). Returns (B, H, Dv) in q's dtype; Dv may differ from D (MLA):
+    on CPU tensors for any pair, on CUDA for the kernel's instances.
+    `scale` defaults to D ** -0.5 (Python double, rounded to float32 by
+    the kernel)."""
     _check(q, k_cache, v_cache)
     b, h, d = q.shape
     pos = _positions(pos, b, q.device)
@@ -150,16 +150,14 @@ def decode_bhd(q, k_cache, v_cache, pos, *, window=0, use_kernel=True,
                                              window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_bhd: no kernel for device {q.device}")
-    if q.dtype not in DTYPES or d not in HEAD_DIMS:
-        raise ValueError(f"decode_bhd: the kernel takes float32 or "
-                         f"bfloat16 with head_dim in {HEAD_DIMS}, got "
-                         f"{q.dtype}, head_dim {d}")
+    check_instance("decode_bhd", q.dtype, d, v_cache.shape[3])
     if h // k_cache.shape[2] > MAX_GROUPS:
         raise ValueError(f"decode_bhd: the kernel holds at most "
                          f"{MAX_GROUPS} query heads per cache head, got "
                          f"{h // k_cache.shape[2]}")
     q, k_cache, v_cache = _aligned(q), _aligned(k_cache), _aligned(v_cache)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, v_cache.shape[3]), dtype=q.dtype,
+                      device=q.device)
     with torch.cuda.device(q.device):
         err = launch(q, k_cache, v_cache, pos, out, window=window,
                      scale=scale,

@@ -19,10 +19,17 @@
 // through their strides, in the model's (B, S, H, D) layout. None of this
 // changes the result on rows that see at least one key.
 //
-// Bound: operations. At the serving shape (1, 32 heads over 8, S = 1,024,
-// head_dim 128, causal) the work is 4 * D per (query, visible key): 8.6
-// GFLOP against 16.8 MB of bf16 in and out, 8.694 us on the bf16 tensor
-// cores (989 TFLOP/s) against 5.0 us of bytes.
+// Instances: q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128,
+// 128), and MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32; v 64): the
+// scores take D, the values and the output Dv.
+//
+// Bound: operations at Llama-3-8B's serving shape (1, 32 heads over 8, S =
+// 1,024, head_dim 128, causal): the work is 2 * (D + Dv) per (query,
+// visible key), 8.6 GFLOP against 16.8 MB of bf16 in and out, 8.694 us on
+// the bf16 tensor cores (989 TFLOP/s) against 5.0 us of bytes. Bytes at
+// MiniCPM3's (1, 40 heads over 40, S = 1,024, 96 / 64, causal): 26.2 MB,
+// 7.82 us at 3.35 TB/s, against 6.72 GFLOP, 6.79 us (no grouped heads
+// share a K or V tile there).
 //
 // Two kernels, chosen by dtype:
 //
@@ -33,7 +40,9 @@
 // thread copies the Q tile once and each 64-key tile of K and V by TMA,
 // from the strided (B, S, H, D) tensors through tensor maps built on the
 // host per call, into a ring of three stages with the hardware's 128-byte
-// swizzle (64-byte at head_dim 32); rows past S arrive as zeros. A stage's
+// swizzle where it divides a row, else 64-byte (head dims 32 and 96: boxes
+// of 32 columns, three side by side at 96); V has a tile of its own width;
+// rows past S arrive as zeros. A stage's
 // `full` mbarrier counts the bytes of its copies, its `empty` mbarrier the
 // 256 consumer threads done with it; the producer refills a stage as soon
 // as it is empty, so copies run up to three tiles ahead of the products
@@ -44,7 +53,7 @@
 // special-function unit with the scale folded into one FMA, the sum kept
 // per thread and reduced once at the end); P rounded to bf16 in the
 // registers that held S, which is the A operand of O += P V by 4
-// register-A wgmma (m64nDk16, V MN-major in shared memory). The products
+// register-A wgmma (m64nDvk16, V MN-major in shared memory). The products
 // of one tile overlap the softmax of the next: S of tile t is started
 // before P V of tile t - 1, and the softmax of tile t runs while P V of
 // tile t - 1 is on the tensor cores. O stays in float32 registers and is
@@ -54,7 +63,8 @@
 // SDPA round it; the Pallas kernel keeps it in float32. A row that sees no
 // key at all gives 0 (the Pallas kernel: the mean of the values it
 // covered); no caller asks for one. Shared memory at D = 128: Q 32 KB + 3
-// x (K 16 KB + V 16 KB), one CTA per SM (about 160 registers a thread).
+// x (K 16 KB + V 16 KB), one CTA per SM (about 160 registers a thread); at
+// (96, 64): Q 24 KB + 3 x (K 12 KB + V 8 KB).
 //
 // float32 (`flash_attention_kernel`): the CUDA cores, unchanged since its
 // first version. TF32 or bf16 products cannot meet the reference's float32
@@ -62,7 +72,7 @@
 // threads per (64-query tile, head, batch row); the query tile and each
 // 32-key tile of K and V staged in shared memory as float32 (rows padded
 // by one float against bank conflicts); each thread owns a 4 x 4 block of
-// the score tile and 4 rows x D/8 columns of the accumulator; a row's max
+// the score tile and 4 rows x Dv/8 columns of the accumulator; a row's max
 // and sum are reduced over its 8 threads with warp shuffles.
 #include <cmath>
 #include <cstdint>
@@ -92,14 +102,15 @@ constexpr int kThreads = 128;      // 16 row groups x 8 column lanes
 constexpr int kBQ = 64;            // query rows per CTA (16 x 4)
 constexpr int kBK = 32;            // keys per tile (8 x 4)
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (static_cast<size_t>(kBQ) * (D + 1) + 2 * kBK * (D + 1) +
-          kBQ * (kBK + 1));
+         (static_cast<size_t>(kBQ) * (DQK + 1) + kBK * (DQK + 1) +
+          kBK * (DV + 1) + kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
+// DQK: the head dim of q and k; DV: that of v and o.
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
@@ -108,10 +119,10 @@ __global__ void __launch_bounds__(kThreads)
                            int kv_len, int q_offset, int causal, int window,
                            float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                  // kBQ x (D + 1)
-  float* ks = qs + kBQ * (D + 1);    // kBK x (D + 1)
-  float* vs = ks + kBK * (D + 1);    // kBK x (D + 1)
-  float* ps = vs + kBK * (D + 1);    // kBQ x (kBK + 1): probabilities
+  float* qs = smem;                    // kBQ x (DQK + 1)
+  float* ks = qs + kBQ * (DQK + 1);    // kBK x (DQK + 1)
+  float* vs = ks + kBK * (DQK + 1);    // kBK x (DV + 1)
+  float* ps = vs + kBK * (DV + 1);     // kBQ x (kBK + 1): probabilities
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y;
@@ -127,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
   T* ob = o + b * so.b + h * so.h;
 
   const int q_rows = min(kBQ, q_len - q0);
-  load_rows<T, D>(qs, qb + q0 * sq.s, sq.s, kBQ, q_rows);
+  load_rows<T, DQK>(qs, qb + q0 * sq.s, sq.s, kBQ, q_rows);
 
   // the keys some row of this tile may see: [k_begin, k_end)
   int k_end = kv_len;
@@ -136,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   if (window) k_begin = max(0, q0 + q_offset - window + 1);
   k_begin = (k_begin / kBK) * kBK;
 
-  constexpr int kCols = D / 8;
+  constexpr int kCols = DV / 8;
   float acc[4][kCols];
   float m[4], l[4];
 #pragma unroll
@@ -150,8 +161,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     const int valid = min(kBK, kv_len - k0);
-    load_rows<T, D>(ks, kb + k0 * sk.s, sk.s, kBK, valid);
-    load_rows<T, D>(vs, vb + k0 * sv.s, sv.s, kBK, valid);
+    load_rows<T, DQK>(ks, kb + k0 * sk.s, sk.s, kBK, valid);
+    load_rows<T, DV>(vs, vb + k0 * sv.s, sv.s, kBK, valid);
     __syncthreads();
 
     float s[4][4];
@@ -159,12 +170,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * (D + 1) + d];
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * (DQK + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 8 * j) * (D + 1) + d];
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 8 * j) * (DQK + 1) + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -213,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * (kBK + 1) + j];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float vv = vs[j * (D + 1) + tx + 8 * c];
+        const float vv = vs[j * (DV + 1) + tx + 8 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] += pv[i] * vv;
       }
@@ -233,49 +244,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          void* o, const int64_t* st, int batch, int n_heads,
                          int n_kv_heads, int q_len, int kv_len, int q_offset,
                          int causal, int window, float scale,
                          cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<T, DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   const dim3 grid((q_len + kBQ - 1) / kBQ, n_heads, batch);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, n_heads,
       n_kv_heads, q_len, kv_len, q_offset, causal, window, scale);
   return cudaGetLastError();
 }
 
+// The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128,
+// 128) and MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64).
 template <typename T>
-cudaError_t launch_dim(int head_dim, const void* q, const void* k,
-                       const void* v, void* o, const int64_t* st, int batch,
-                       int n_heads, int n_kv_heads, int q_len, int kv_len,
-                       int q_offset, int causal, int window, float scale,
+cudaError_t launch_dim(int head_dim, int v_head_dim, const void* q,
+                       const void* k, const void* v, void* o,
+                       const int64_t* st, int batch, int n_heads,
+                       int n_kv_heads, int q_len, int kv_len, int q_offset,
+                       int causal, int window, float scale,
                        cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch_typed<T, 32>(q, k, v, o, st, batch, n_heads, n_kv_heads,
-                                 q_len, kv_len, q_offset, causal, window,
-                                 scale, stream);
-    case 64:
-      return launch_typed<T, 64>(q, k, v, o, st, batch, n_heads, n_kv_heads,
-                                 q_len, kv_len, q_offset, causal, window,
-                                 scale, stream);
-    case 128:
-      return launch_typed<T, 128>(q, k, v, o, st, batch, n_heads,
-                                  n_kv_heads, q_len, kv_len, q_offset,
-                                  causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FA_CASE(DQK, DV)                                                    \
+  if (head_dim == DQK && v_head_dim == DV)                                 \
+    return launch_typed<T, DQK, DV>(q, k, v, o, st, batch, n_heads,       \
+                                    n_kv_heads, q_len, kv_len, q_offset,  \
+                                    causal, window, scale, stream);
+  FA_CASE(32, 32)
+  FA_CASE(64, 64)
+  FA_CASE(128, 128)
+  FA_CASE(96, 64)
+#undef FA_CASE
+  return cudaErrorInvalidValue;
 }
 
 // ---- bfloat16: tensor cores -------------------------------------------------
@@ -286,22 +295,38 @@ constexpr int kTcBQ = 128;       // query rows per CTA, 64 per warpgroup
 constexpr int kTcBK = 64;        // keys per tile
 constexpr int kStages = 3;       // K / V ring
 
-// Shared-memory geometry of one CTA at head_dim D: Q, K and V tiles are
-// boxes of kBoxCols columns (one swizzle row of kSwizzle bytes) by the
-// tile's rows, D / kBoxCols boxes side by side.
+// The shared-memory layout of a tile whose rows are D bf16 values: boxes
+// of kBoxCols columns (one swizzle row of kSwizzle bytes) by the tile's
+// rows, D / kBoxCols boxes side by side. The swizzle row is 128 bytes where
+// it divides the row, else 64 (D = 32 and D = 96: 2 and 3 boxes of 32).
 template <int D>
-struct TcTile {
-  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;
+struct TcRows {
+  static constexpr int kSwizzle =
+      D * 2 % 128 == 0 ? 128 : (D * 2 < 128 ? D * 2 : 64);
   static constexpr int kBoxCols = kSwizzle / 2;
   static constexpr int kBoxes = D / kBoxCols;
   static constexpr int kAtom = 8 * kSwizzle;       // 8 swizzled rows
-  static constexpr int kQBox = kTcBQ * kSwizzle;   // bytes
-  static constexpr int kKVBox = kTcBK * kSwizzle;
-  static constexpr int kQBytes = kQBox * kBoxes;
-  static constexpr int kKVBytes = kKVBox * kBoxes;
+  static_assert(kBoxes * kBoxCols == D, "D is a multiple of the box");
+};
+
+// Shared-memory geometry of one CTA: Q and K tiles of DQK columns, V tiles
+// of DV columns, each laid out as TcRows of its own width.
+template <int DQK, int DV>
+struct TcTile {
+  using QK = TcRows<DQK>;
+  using V = TcRows<DV>;
+  static constexpr int kQBox = kTcBQ * QK::kSwizzle;   // bytes
+  static constexpr int kKBox = kTcBK * QK::kSwizzle;
+  static constexpr int kVBox = kTcBK * V::kSwizzle;
+  static constexpr int kQBytes = kQBox * QK::kBoxes;
+  static constexpr int kKBytes = kKBox * QK::kBoxes;
+  static constexpr int kVBytes = kVBox * V::kBoxes;
+  static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 &&
+                    kVBytes % 1024 == 0,
+                "every tile starts on a swizzle atom");
   // 1,024 for aligning the tiles to a swizzle atom; 64 for the barriers
   static constexpr size_t kSmem =
-      1024 + kQBytes + 2 * kStages * kKVBytes + 64;
+      1024 + kQBytes + kStages * (kKBytes + kVBytes) + 64;
 };
 
 // O (m64nD) += P (64 x 16 keys, bf16 in registers) * V (16 keys x D).
@@ -325,23 +350,24 @@ __device__ __forceinline__ void pv_step<128>(float* o, const uint32_t* p,
 }
 
 // Starts (and commits, without waiting) S = Q K^T for warpgroup `wg`'s 64
-// rows against the key tile `k_tile`: D / 16 products, K-major operands.
-template <int D>
+// rows against the key tile `k_tile`: DQK / 16 products, K-major operands.
+template <int DQK, int DV>
 __device__ __forceinline__ void qk_mma(float (&sc)[kTcBK / 2],
                                        const uint8_t* qs,
                                        const uint8_t* k_tile, int wg) {
-  using G = TcTile<D>;
+  using G = TcTile<DQK, DV>;
+  using R = typename G::QK;
   hopper::fence_operands(sc);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int x = kk * 16 / G::kBoxCols;
-    const int within = (kk * 16 % G::kBoxCols) * 2;
+  for (int kk = 0; kk < DQK / 16; ++kk) {
+    const int x = kk * 16 / R::kBoxCols;
+    const int within = (kk * 16 % R::kBoxCols) * 2;
     const uint64_t a = hopper::make_desc(
-        qs + x * G::kQBox + wg * 64 * G::kSwizzle + within, 16, G::kAtom,
-        G::kSwizzle);
-    const uint64_t b = hopper::make_desc(k_tile + x * G::kKVBox + within, 16,
-                                         G::kAtom, G::kSwizzle);
+        qs + x * G::kQBox + wg * 64 * R::kSwizzle + within, 16, R::kAtom,
+        R::kSwizzle);
+    const uint64_t b = hopper::make_desc(k_tile + x * G::kKBox + within, 16,
+                                         R::kAtom, R::kSwizzle);
     hopper::wgmma_ss_m64n64k16(sc, a, b, kk > 0);
   }
   hopper::wgmma_commit();
@@ -350,18 +376,19 @@ __device__ __forceinline__ void qk_mma(float (&sc)[kTcBK / 2],
 
 // Starts (and commits, without waiting) O += P V for the value tile
 // `v_tile`: kTcBK / 16 products, P from registers, V MN-major.
-template <int D>
-__device__ __forceinline__ void pv_mma(float (&o)[D / 2],
+template <int DQK, int DV>
+__device__ __forceinline__ void pv_mma(float (&o)[DV / 2],
                                        const uint32_t (&pa)[kTcBK / 16][4],
                                        const uint8_t* v_tile) {
-  using G = TcTile<D>;
+  using G = TcTile<DQK, DV>;
+  using R = typename G::V;
   hopper::fence_operands(o);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTcBK / 16; ++kk)
-    pv_step<D>(o, pa[kk],
-               hopper::make_desc(v_tile + kk * 16 * G::kSwizzle, G::kKVBox,
-                                 G::kAtom, G::kSwizzle));
+    pv_step<DV>(o, pa[kk],
+                hopper::make_desc(v_tile + kk * 16 * R::kSwizzle, G::kVBox,
+                                  R::kAtom, R::kSwizzle));
   hopper::wgmma_commit();
   hopper::fence_operands(o);
 }
@@ -436,26 +463,27 @@ __device__ __forceinline__ void pack_p(const float (&sc)[kTcBK / 2],
 }
 
 // Thread 0: the TMA copies of key tile t (K and V) into its ring stage.
-template <int D>
+template <int DQK, int DV>
 __device__ __forceinline__ void load_kv_tile(uint8_t* ks, uint8_t* vs,
                                              uint64_t* full,
                                              const CUtensorMap* tk,
                                              const CUtensorMap* tv, int t,
                                              int k_begin, int hk, int b) {
-  using G = TcTile<D>;
+  using G = TcTile<DQK, DV>;
   const int s = t % kStages;
   const int k0 = k_begin + t * kTcBK;
-  hopper::mbar_arrive_expect_tx(&full[s], 2 * G::kKVBytes);
+  hopper::mbar_arrive_expect_tx(&full[s], G::kKBytes + G::kVBytes);
 #pragma unroll
-  for (int x = 0; x < G::kBoxes; ++x) {
-    hopper::tma_load_4d(ks + s * G::kKVBytes + x * G::kKVBox, tk, &full[s],
-                        x * G::kBoxCols, hk, k0, b);
-    hopper::tma_load_4d(vs + s * G::kKVBytes + x * G::kKVBox, tv, &full[s],
-                        x * G::kBoxCols, hk, k0, b);
-  }
+  for (int x = 0; x < G::QK::kBoxes; ++x)
+    hopper::tma_load_4d(ks + s * G::kKBytes + x * G::kKBox, tk, &full[s],
+                        x * G::QK::kBoxCols, hk, k0, b);
+#pragma unroll
+  for (int x = 0; x < G::V::kBoxes; ++x)
+    hopper::tma_load_4d(vs + s * G::kVBytes + x * G::kVBox, tv, &full[s],
+                        x * G::V::kBoxCols, hk, k0, b);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads)
     flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -464,13 +492,13 @@ __global__ void __launch_bounds__(kTcThreads)
                               int n_heads, int n_kv_heads, int q_len,
                               int kv_len, int q_offset, int causal,
                               int window, float scale_log2) {
-  using G = TcTile<D>;
+  using G = TcTile<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) &
                             1023);
   uint8_t* ks = qs + G::kQBytes;                 // kStages x (K tile)
-  uint8_t* vs = ks + kStages * G::kKVBytes;      // kStages x (V tile)
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * G::kKVBytes);
+  uint8_t* vs = ks + kStages * G::kKBytes;       // kStages x (V tile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * G::kVBytes);
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
 
@@ -506,13 +534,13 @@ __global__ void __launch_bounds__(kTcThreads)
     if (lane == 0) {
       hopper::mbar_arrive_expect_tx(q_full, G::kQBytes);
 #pragma unroll
-      for (int x = 0; x < G::kBoxes; ++x)
+      for (int x = 0; x < G::QK::kBoxes; ++x)
         hopper::tma_load_4d(qs + x * G::kQBox, &tq, q_full,
-                            x * G::kBoxCols, h, q0, b);
+                            x * G::QK::kBoxCols, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         if (t >= kStages)  // the consumers are done with tile t - kStages
           hopper::mbar_wait(&empty[t % kStages], (t / kStages - 1) & 1);
-        load_kv_tile<D>(ks, vs, full, &tk, &tv, t, k_begin, hk, b);
+        load_kv_tile<DQK, DV>(ks, vs, full, &tk, &tv, t, k_begin, hk, b);
       }
     }
     return;
@@ -527,9 +555,9 @@ __global__ void __launch_bounds__(kTcThreads)
   const int p_last = min(q0 + wg * 64 + 63, q_len - 1) + q_offset;
 
   constexpr int kS = kTcBK / 2;  // score registers per thread
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
 
@@ -564,7 +592,7 @@ __global__ void __launch_bounds__(kTcThreads)
     uint32_t pa[kTcBK / 16][4];
     float alpha[2];
     hopper::mbar_wait(&full[t_begin % kStages], (t_begin / kStages) & 1);
-    qk_mma<D>(sc, qs, ks + (t_begin % kStages) * G::kKVBytes, wg);
+    qk_mma<DQK, DV>(sc, qs, ks + (t_begin % kStages) * G::kKBytes, wg);
     hopper::wgmma_wait<0>();
     hopper::fence_operands(sc);
     softmax_tile(sc, m, l, alpha, edge(t_begin),
@@ -575,8 +603,8 @@ __global__ void __launch_bounds__(kTcThreads)
       const int s = t % kStages;
       const int prev = (t - 1) % kStages;
       hopper::mbar_wait(&full[s], (t / kStages) & 1);
-      qk_mma<D>(sc, qs, ks + s * G::kKVBytes, wg);
-      pv_mma<D>(acc, pa, vs + prev * G::kKVBytes);
+      qk_mma<DQK, DV>(sc, qs, ks + s * G::kKBytes, wg);
+      pv_mma<DQK, DV>(acc, pa, vs + prev * G::kVBytes);
       hopper::wgmma_wait<1>();  // the scores of tile t
       hopper::fence_operands(sc);
       softmax_tile(sc, m, l, alpha, edge(t), k_begin + t * kTcBK,
@@ -586,7 +614,7 @@ __global__ void __launch_bounds__(kTcThreads)
       hopper::fence_operands(acc);
       hopper::mbar_arrive(&empty[prev]);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           acc[4 * j + 2 * i] *= alpha[i];
@@ -594,7 +622,7 @@ __global__ void __launch_bounds__(kTcThreads)
         }
       pack_p(sc, pa);
     }
-    pv_mma<D>(acc, pa, vs + ((t_end - 1) % kStages) * G::kKVBytes);
+    pv_mma<DQK, DV>(acc, pa, vs + ((t_end - 1) % kStages) * G::kVBytes);
     hopper::wgmma_wait<0>();
     hopper::fence_operands(acc);
     hopper::mbar_arrive(&empty[(t_end - 1) % kStages]);
@@ -613,7 +641,7 @@ __global__ void __launch_bounds__(kTcThreads)
       const float inv = 1.0f / fmaxf(l[i], 1e-30f);
       __nv_bfloat16* orow = o + b * so.b + h * so.h + (q0 + row) * so.s;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
             hopper::pack_bf16(acc[4 * j + 2 * i] * inv,
                               acc[4 * j + 2 * i + 1] * inv);
@@ -623,22 +651,25 @@ __global__ void __launch_bounds__(kTcThreads)
 
 // `geometry`: the tensor maps of q, k and v, 11 values each (dims, byte
 // strides, box; see hopper::encode_bf16_4d), as the wrapper builds them.
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const int64_t* st, const int64_t* geometry, int batch,
                       int n_heads, int n_kv_heads, int q_len, int kv_len,
                       int q_offset, int causal, int window, float scale,
                       cudaStream_t stream) {
-  using G = TcTile<D>;
+  using G = TcTile<DQK, DV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<D>,
+      flash_attention_tc_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(G::kSmem));
   if (attr != cudaSuccess) return attr;
-  const int rows[3] = {kTcBQ, kTcBK, kTcBK};
+  // per tensor (q, k, v): head dim, box columns, box rows
+  const int want[3][3] = {{DQK, G::QK::kBoxCols, kTcBQ},
+                          {DQK, G::QK::kBoxCols, kTcBK},
+                          {DV, G::V::kBoxCols, kTcBK}};
   for (int i = 0; i < 3; ++i)
-    if (geometry[11 * i] != D || geometry[11 * i + 7] != G::kBoxCols ||
-        geometry[11 * i + 9] != rows[i])
+    if (geometry[11 * i] != want[i][0] || geometry[11 * i + 7] != want[i][1] ||
+        geometry[11 * i + 9] != want[i][2])
       return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!hopper::encode_bf16_4d(&tq, q, geometry) ||
@@ -647,41 +678,38 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   const Strides so{st[9], st[10], st[11]};
   const dim3 grid(n_heads, (q_len + kTcBQ - 1) / kTcBQ, batch);
-  flash_attention_tc_kernel<D><<<grid, kTcThreads, G::kSmem, stream>>>(
+  flash_attention_tc_kernel<DQK, DV><<<grid, kTcThreads, G::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, n_heads, n_kv_heads,
       q_len, kv_len, q_offset, causal, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-cudaError_t launch_tc_dim(int head_dim, const void* q, const void* k,
-                          const void* v, void* o, const int64_t* st,
-                          const int64_t* geometry, int batch, int n_heads,
-                          int n_kv_heads, int q_len, int kv_len,
-                          int q_offset, int causal, int window, float scale,
-                          cudaStream_t stream) {
-  switch (head_dim) {
-    case 32:
-      return launch_tc<32>(q, k, v, o, st, geometry, batch, n_heads,
-                           n_kv_heads, q_len, kv_len, q_offset, causal,
-                           window, scale, stream);
-    case 64:
-      return launch_tc<64>(q, k, v, o, st, geometry, batch, n_heads,
-                           n_kv_heads, q_len, kv_len, q_offset, causal,
-                           window, scale, stream);
-    case 128:
-      return launch_tc<128>(q, k, v, o, st, geometry, batch, n_heads,
-                            n_kv_heads, q_len, kv_len, q_offset, causal,
-                            window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_tc_dim(int head_dim, int v_head_dim, const void* q,
+                          const void* k, const void* v, void* o,
+                          const int64_t* st, const int64_t* geometry,
+                          int batch, int n_heads, int n_kv_heads, int q_len,
+                          int kv_len, int q_offset, int causal, int window,
+                          float scale, cudaStream_t stream) {
+#define FA_TC_CASE(DQK, DV)                                                 \
+  if (head_dim == DQK && v_head_dim == DV)                                 \
+    return launch_tc<DQK, DV>(q, k, v, o, st, geometry, batch, n_heads,   \
+                              n_kv_heads, q_len, kv_len, q_offset, causal, \
+                              window, scale, stream);
+  FA_TC_CASE(32, 32)
+  FA_TC_CASE(64, 64)
+  FA_TC_CASE(128, 128)
+  FA_TC_CASE(96, 64)
+#undef FA_TC_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, Sq, H, D), k and v (B, Skv, Hkv, D), o (B, Sq, H, D), all of one
-// dtype (0: float32, 1: bfloat16), read and written through the 12 element
+// q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv), o (B, Sq, H,
+// Dv), with (D, Dv) = (head_dim, v_head_dim) one of the instances of
+// launch_dim, all of one dtype (0: float32, 1: bfloat16), read and
+// written through the 12 element
 // strides in `strides` (batch, sequence, head of q, k, v, o in turn).
 // bfloat16 also takes `geometry`: the TMA tensor maps of q, k and v (11
 // values each: dims, byte strides, box), built by the wrapper; float32
@@ -693,20 +721,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const int64_t* strides,
                                       const int64_t* geometry, int batch,
                                       int n_heads, int n_kv_heads, int q_len,
-                                      int kv_len, int head_dim, int dtype,
+                                      int kv_len, int head_dim,
+                                      int v_head_dim, int dtype,
                                       int q_offset, int causal, int window,
                                       float scale, void* stream) {
   if (batch <= 0 || q_len <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_dim<float>(head_dim, q, k, v, o, strides, batch, n_heads,
-                            n_kv_heads, q_len, kv_len, q_offset, causal,
-                            window, scale, s);
+    err = launch_dim<float>(head_dim, v_head_dim, q, k, v, o, strides, batch,
+                            n_heads, n_kv_heads, q_len, kv_len, q_offset,
+                            causal, window, scale, s);
   else if (dtype == 1 && geometry != nullptr)
-    err = launch_tc_dim(head_dim, q, k, v, o, strides, geometry, batch,
-                        n_heads, n_kv_heads, q_len, kv_len, q_offset, causal,
-                        window, scale, s);
+    err = launch_tc_dim(head_dim, v_head_dim, q, k, v, o, strides, geometry,
+                        batch, n_heads, n_kv_heads, q_len, kv_len, q_offset,
+                        causal, window, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

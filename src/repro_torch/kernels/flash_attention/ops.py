@@ -4,7 +4,9 @@
 On CUDA tensors it launches the hand-written kernel
 (`flash_attention.cu`) on the current stream; on CPU tensors, or with
 `use_kernel=False`, it runs the plain PyTorch version (`ref.py`). There is
-no other fallback: any other device, dtype, head_dim or layout raises.
+no other fallback: any other device, dtype, pair of head dims or layout
+raises. The instances take a q/k head dim equal to v's (32, 64, 128) and
+MLA's 96 with a v head dim of 64 (`HEAD_DIMS`).
 The C entry point holds two kernels and picks one by dtype: bfloat16 runs
 on the tensor cores (wgmma, with Q, K and V copied by TMA through tensor
 maps that this wrapper describes per call, `tensor_map_geometry`);
@@ -30,9 +32,11 @@ KERNEL = CudaKernel(
     "flash_attention_launch",
     [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int64),
      ctypes.POINTER(ctypes.c_int64), _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _P])
+     _I, ctypes.c_float, _P])
 
-HEAD_DIMS = (32, 64, 128)
+#: (q/k head dim, v head dim) of the kernels' instances (and of B3's):
+#: equal dims, and MLA's 96 / 64 (MiniCPM3)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of the bfloat16 kernel's query tile and key tile (kTcBQ, kTcBK)
 BLOCK_Q, BLOCK_KV = 128, 64
@@ -43,9 +47,12 @@ def tensor_map_geometry(t: torch.Tensor, rows: int) -> tuple[int, ...]:
     whose tiles are `rows` sequence positions of one head: the dims
     innermost first (D, H, S, B) in elements; the byte strides of H, S
     and B; the box (columns, 1, rows, 1), whose columns span one swizzle
-    row (128 bytes, or the whole row where it is shorter). A dim of size 1
-    gets the stride it would have in a packed tensor: its coordinate is
-    always 0, and the tensor map wants 16-byte multiples."""
+    row: 128 bytes where that divides the row, the whole row where it is
+    shorter, else 64 bytes (MLA's q and k rows of 96 bf16 values: three
+    boxes of 32 columns). Each tensor gets its own D, so v's may differ
+    from q's. A dim of size 1 gets the stride it would have in a packed
+    tensor: its coordinate is always 0, and the tensor map wants 16-byte
+    multiples."""
     b, s, h, d = t.shape
     size = t.element_size()
     strides = [t.stride(2) * size, t.stride(1) * size, t.stride(0) * size]
@@ -54,7 +61,8 @@ def tensor_map_geometry(t: torch.Tensor, rows: int) -> tuple[int, ...]:
         if n == 1:
             strides[i] = inner
         inner = strides[i] * n
-    swizzle = min(d * size, 128)
+    row = d * size
+    swizzle = 128 if row % 128 == 0 else row if row < 128 else 64
     return (d, h, s, b, *strides, swizzle // size, 1, rows, 1)
 
 
@@ -76,14 +84,35 @@ def _check(q, k, v) -> None:
     if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"attention_bhsd: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if v.shape[3] != d and q.device.type != "cpu":
-        raise ValueError(f"attention_bhsd: v's head dim {v.shape[3]} "
-                         f"differs from q's {d}; the kernel has no such "
-                         f"instance and there is no plain route off the "
-                         f"CPU yet (MLA: ROADMAP A10/A11)")
+    if q.device.type != "cpu":
+        check_head_dims("attention_bhsd", d, v.shape[3])
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"attention_bhsd: {h} query heads do not group "
                          f"over {k.shape[2]} KV heads")
+
+
+def check_head_dims(fn: str, d: int, dv: int) -> None:
+    """Off the CPU, raise ValueError for a v head dim other than q's
+    unless (d, dv) is an instance (`HEAD_DIMS`): there is no plain route
+    for it there. Equal dims outside the instances are refused where the
+    kernel is chosen."""
+    if dv != d and (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"{fn}: q/k head dim {d} with v head dim {dv} is "
+                         f"no instance of the kernel (instances: "
+                         f"{HEAD_DIMS}), and there is no plain route off "
+                         f"the CPU")
+
+
+def check_instance(fn: str, dtype: torch.dtype, d: int, dv: int) -> None:
+    """Raise ValueError unless the kernel has an instance for `dtype` and
+    the pair of head dims (d, dv)."""
+    if dtype in DTYPES and (d, dv) in HEAD_DIMS:
+        return
+    hybrid = " (112 is Zamba2's: the hybrid family, ROADMAP A10 and A11)" \
+        if 112 in (d, dv) else ""
+    raise ValueError(f"{fn}: the kernel takes float32 or bfloat16 with "
+                     f"(q/k, v) head dims in {HEAD_DIMS}, got {dtype}, "
+                     f"({d}, {dv}){hybrid}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -101,7 +130,7 @@ def launch(q, k, v, out, *, causal, window, scale, q_offset, stream) -> int:
     """Launch the kernel on `stream` for checked (B, S, H, D) tensors;
     returns the CUDA error code (0: accepted)."""
     b, sq, h, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3])
@@ -113,7 +142,7 @@ def launch(q, k, v, out, *, causal, window, scale, q_offset, stream) -> int:
             *tensor_map_geometry(v, BLOCK_KV))
     return KERNEL.function()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        geometry, b, h, hkv, sq, skv, d, DTYPES[q.dtype], q_offset,
+        geometry, b, h, hkv, sq, skv, d, dv, DTYPES[q.dtype], q_offset,
         int(causal), window, scale, stream)
 
 
@@ -123,8 +152,9 @@ def attention_bhsd(q, k, v, *, causal=True, window=0, use_kernel=True,
 
     q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) with
     H % Hkv == 0. Returns (B, Sq, H, Dv) in q's dtype. Dv may differ from
-    D (MLA) on CPU tensors only. `scale` defaults to D ** -0.5, formed in
-    Python double and rounded to float32, as the reference forms it.
+    D (MLA): on CPU tensors for any pair, on CUDA for the instances
+    (`HEAD_DIMS`). `scale` defaults to D ** -0.5, formed in Python double
+    and rounded to float32, as the reference forms it.
     """
     _check(q, k, v)
     d = q.shape[3]
@@ -136,12 +166,10 @@ def attention_bhsd(q, k, v, *, causal=True, window=0, use_kernel=True,
         return out.transpose(1, 2)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bhsd: no kernel for device {q.device}")
-    if q.dtype not in DTYPES or d not in HEAD_DIMS:
-        raise ValueError(f"attention_bhsd: the kernel takes float32 or "
-                         f"bfloat16 with head_dim in {HEAD_DIMS}, got "
-                         f"{q.dtype}, head_dim {d}")
+    check_instance("attention_bhsd", q.dtype, d, v.shape[3])
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((*q.shape[:3], v.shape[3]), dtype=q.dtype,
+                      device=q.device)
     with torch.cuda.device(q.device):
         err = launch(q, k, v, out, causal=causal, window=window,
                      scale=scale, q_offset=q_offset,

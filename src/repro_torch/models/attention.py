@@ -160,17 +160,22 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
     scalar path clamps an index past the end, and its per-slot path drops
     the write.
     """
-    k_new = k_new.to(k_cache.dtype)
-    v_new = v_new.to(v_cache.dtype)
-    pos = torch.as_tensor(pos, device=k_cache.device).long()
-    if pos.dim() == 0:
-        k_cache.index_copy_(1, pos.reshape(1), k_new)
-        v_cache.index_copy_(1, pos.reshape(1), v_new)
-    else:
-        b = torch.arange(k_cache.shape[0], device=k_cache.device)
-        k_cache[b, pos] = k_new[:, 0]
-        v_cache[b, pos] = v_new[:, 0]
+    write_row(k_cache, k_new, pos)
+    write_row(v_cache, v_new, pos)
     return k_cache, v_cache
+
+
+def write_row(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write one token's row `new` (B, 1, ...) into `cache` (B, S, ...) in
+    place at index `pos` (scalar, or (B,) per slot), in the cache's dtype:
+    `cache_update`'s write of K or V, and MLA's of its latent."""
+    new = new.to(cache.dtype)
+    pos = torch.as_tensor(pos, device=cache.device).long()
+    if pos.dim() == 0:
+        cache.index_copy_(1, pos.reshape(1), new)
+    else:
+        cache[torch.arange(cache.shape[0], device=cache.device), pos] = \
+            new[:, 0]
 
 
 def cross_attention(q: torch.Tensor, k_mem: torch.Tensor,

@@ -1,14 +1,17 @@
-"""Dense GQA decoder and Mamba2 (ssm) model: init / prefill / decode (the
-counterpart of `repro.models.model`, dense and ssm families only).
+"""Decoder models of the port: dense GQA, mixture-of-experts, MLA and
+Mamba2 (ssm): init / prefill / decode (the counterpart of
+`repro.models.model` for those families).
 
 Conventions, as in the reference where they can be:
   * parameters keep the reference's names and layouts, one `Block` or
     `MambaBlock` per layer instead of arrays stacked on a leading
     `num_layers` axis (`params_from_jax` converts the reference's tree);
-  * the dense decode cache is {"k", "v": (L, B, S, Hkv, D), "pos"}, the
-    ssm one {"conv": (L, B, W-1, C), "state": (L, B, H, P, N) float32,
-    "pos"}, with `pos` a 0-d or (B,) int32 tensor of valid tokens on the
-    model's device;
+  * the GQA decode cache is {"k", "v": (L, B, S, Hkv, D), "pos"}, the
+    MLA one the compressed latent {"latent": (L, B, S, kv_lora_rank +
+    qk_rope_dim), "pos"} (rope applied before caching), the ssm one
+    {"conv": (L, B, W-1, C), "state": (L, B, H, P, N) float32, "pos"},
+    with `pos` a 0-d or (B,) int32 tensor of valid tokens on the model's
+    device;
   * the cache is written in place: `decode_step` updates its tensors and
     returns them with `pos + 1` (the reference returns new arrays; a copy
     of the whole cache per step is what this avoids).
@@ -19,15 +22,22 @@ On CUDA the prefill attention runs in the hand-written kernel
 `kernels/ssd_scan`; on the CPU, or with `use_kernel=False` on any device,
 the attention kernels' plain PyTorch versions (`ref.py`) and the model's
 own chunked scan (`mamba2.ssd_chunked`, what the reference's model
-computes) run instead. The attention keeps the softmax in float32, where
-the reference's jnp model path rounds its scores and probabilities to
-bfloat16, so at bfloat16 the two models agree to the reference's bfloat16
-bound, not bit for bit. The Mamba2 decode step has no kernel, in the port
-as in the reference. The model runs on the card unless the caller passes
-`device="cpu"`.
+computes) run instead. MLA attends with a q/k head dim of qk_nope_dim +
+qk_rope_dim and a v head dim of v_head_dim (96 and 64 in MiniCPM3, an
+instance of both kernels); its decode expands K and V from the whole
+latent cache each step, as the reference does, or with `mla_absorb`
+attends against the latent itself in plain PyTorch (the reference's jnp
+`_mla_absorbed_attention`, which no kernel computes). The MoE FFN
+(`models/moe.py`) is batched matrix products, as in the reference. The
+attention keeps the softmax in float32, where the reference's jnp model
+path rounds its scores and probabilities to bfloat16, so at bfloat16 the
+two models agree to the reference's bfloat16 bound, not bit for bit. The
+Mamba2 decode step has no kernel, in the port as in the reference. The
+model runs on the card unless the caller passes `device="cpu"`.
 
-Other families raise NotImplementedError at `Model(...)`, naming the
-ROADMAP item that ports them.
+Other families (hybrid, encoder-decoder, vision frontend) raise
+NotImplementedError at `Model(...)`, naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -38,7 +48,7 @@ from torch import nn
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, embed, rms_norm, swiglu,
                                        unembed)
@@ -59,16 +69,14 @@ def check_supported(cfg: ModelConfig) -> None:
     elif cfg.frontend != "none":
         item = f"the {cfg.frontend} frontend of the {cfg.family} family " \
                f"(ROADMAP A11)"
-    elif cfg.attn_type == "mla":
-        item = "MLA attention (ROADMAP A11)"
-    elif cfg.num_experts:
-        item = "mixture-of-experts layers (ROADMAP A10)"
-    elif cfg.family != "dense" or cfg.attn_type != "gqa":
+    elif cfg.family not in ("dense", "moe") or \
+            cfg.attn_type not in ("gqa", "mla"):
         item = f"family {cfg.family!r} with attention {cfg.attn_type!r}"
     else:
         return
-    raise NotImplementedError(f"{cfg.name}: the port runs dense GQA and "
-                              f"Mamba2 (ssm) models only; {item} is not "
+    raise NotImplementedError(f"{cfg.name}: the port runs dense, "
+                              f"mixture-of-experts (GQA or MLA attention) "
+                              f"and Mamba2 (ssm) models only; {item} is not "
                               f"ported yet")
 
 
@@ -88,26 +96,47 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One decoder layer: attention (`ln1`, `attn`) and SwiGLU MLP
-    (`ln2`, `mlp`), with the reference's parameter names and layouts."""
+    """One decoder layer: attention (`ln1`, `attn`: GQA, or MLA's low-rank
+    projections) and SwiGLU MLP (`ln2`, `mlp`: dense, or `num_experts`
+    experts stacked on a leading axis behind a float32 router), with the
+    reference's parameter names and layouts
+    (`repro.models.model._init_attn`, `_init_mlp`)."""
 
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
         h, hkv = cfg.num_heads, cfg.num_kv_heads
         self.ln1 = _param(make.ones(d))
-        self.attn = nn.ParameterDict({
-            "wq": _param(make.normal(d, h * hd)),
-            "wk": _param(make.normal(d, hkv * hd)),
-            "wv": _param(make.normal(d, hkv * hd)),
-            "wo": _param(make.normal(h * hd, d)),
-        })
+        if cfg.attn_type == "mla":
+            qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+            attn = {
+                "q_down": make.normal(d, cfg.q_lora_rank),
+                "q_ln": make.ones(cfg.q_lora_rank),
+                "q_up": make.normal(cfg.q_lora_rank, h * qk),
+                "kv_down": make.normal(d, cfg.kv_lora_rank
+                                       + cfg.qk_rope_dim),
+                "kv_ln": make.ones(cfg.kv_lora_rank),
+                "k_up": make.normal(cfg.kv_lora_rank, h * cfg.qk_nope_dim),
+                "v_up": make.normal(cfg.kv_lora_rank, h * cfg.v_head_dim),
+                "wo": make.normal(h * cfg.v_head_dim, d),
+            }
+        else:
+            attn = {"wq": make.normal(d, h * hd),
+                    "wk": make.normal(d, hkv * hd),
+                    "wv": make.normal(d, hkv * hd),
+                    "wo": make.normal(h * hd, d)}
+        self.attn = nn.ParameterDict({k: _param(v) for k, v in attn.items()})
         self.ln2 = _param(make.ones(d))
-        self.mlp = nn.ParameterDict({
-            "w_gate": _param(make.normal(d, f)),
-            "w_up": _param(make.normal(d, f)),
-            "w_down": _param(make.normal(f, d)),
-        })
+        if cfg.num_experts:
+            e = cfg.num_experts
+            mlp = {"router": make.normal(d, e, dtype=torch.float32),
+                   "w_gate": make.normal(e, d, f),
+                   "w_up": make.normal(e, d, f),
+                   "w_down": make.normal(e, f, d)}
+        else:
+            mlp = {"w_gate": make.normal(d, f), "w_up": make.normal(d, f),
+                   "w_down": make.normal(f, d)}
+        self.mlp = nn.ParameterDict({k: _param(v) for k, v in mlp.items()})
 
 
 class MambaBlock(nn.Module):
@@ -147,10 +176,10 @@ class _Maker:
     def __init__(self, dtype, device, generator):
         self.dtype, self.device, self.generator = dtype, device, generator
 
-    def normal(self, *shape, std=INIT_STD) -> torch.Tensor:
+    def normal(self, *shape, std=INIT_STD, dtype=None) -> torch.Tensor:
         x = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32).mul_(std)
-        return x.to(self.dtype)
+        return x.to(dtype or self.dtype)
 
     def ones(self, *shape, dtype=None) -> torch.Tensor:
         return torch.ones(shape, dtype=dtype or self.dtype,
@@ -162,8 +191,9 @@ class _Maker:
 
 
 class Model(nn.Module):
-    """Dense GQA decoder or Mamba2 model with random weights drawn from a
-    `torch.Generator` seeded with `seed`, on `device` (default "cuda")."""
+    """Dense, MoE or MLA decoder, or Mamba2 model, with random weights
+    drawn from a `torch.Generator` seeded with `seed`, on `device`
+    (default "cuda")."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -203,18 +233,70 @@ class Model(nn.Module):
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def _mla_q(self, h, ap, positions):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+        ql = rms_norm(h @ ap["q_down"], ap["q_ln"], cfg.norm_eps)
+        q = (ql @ ap["q_up"]).reshape(b, s, cfg.num_heads, qk_dim)
+        q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                     dim=-1)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        return torch.cat([q_nope, q_rope], dim=-1)
+
+    def _mla_latent(self, h, ap, positions):
+        """Compressed KV latent: (B,S,kv_lora + rope). Rope pre-applied."""
+        cfg = self.cfg
+        lat = h @ ap["kv_down"]
+        c_kv, k_rope = torch.split(lat, [cfg.kv_lora_rank, cfg.qk_rope_dim],
+                                   dim=-1)
+        c_kv = rms_norm(c_kv, ap["kv_ln"], cfg.norm_eps)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                            cfg.rope_theta)[:, :, 0]
+        return torch.cat([c_kv, k_rope], dim=-1)
+
+    def _mla_kv_from_latent(self, latent, ap):
+        """Expand cached latent to per-head K (nope+rope) and V."""
+        cfg = self.cfg
+        b, s, _ = latent.shape
+        c_kv, k_rope = torch.split(latent,
+                                   [cfg.kv_lora_rank, cfg.qk_rope_dim],
+                                   dim=-1)
+        k_nope = (c_kv @ ap["k_up"]).reshape(b, s, cfg.num_heads,
+                                             cfg.qk_nope_dim)
+        v = (c_kv @ ap["v_up"]).reshape(b, s, cfg.num_heads,
+                                        cfg.v_head_dim)
+        k_rope = k_rope[:, :, None, :].expand(b, s, cfg.num_heads,
+                                              cfg.qk_rope_dim)
+        return torch.cat([k_nope, k_rope], dim=-1), v
+
+    def _mla_scale(self) -> float:
+        return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
+
     def _attn_full(self, h, blk, positions, use_kernel):
+        """The attention half of a layer over a whole sequence; returns
+        (h, what the decode cache keeps: (k, v), or MLA's latent)."""
         cfg = self.cfg
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
-        q, k, v = self._gqa_qkv(hn, blk.attn, positions)
+        if cfg.attn_type == "mla":
+            q = self._mla_q(hn, blk.attn, positions)
+            kept = self._mla_latent(hn, blk.attn, positions)
+            k, v = self._mla_kv_from_latent(kept, blk.attn)
+            scale = self._mla_scale()
+        else:
+            q, k, v = self._gqa_qkv(hn, blk.attn, positions)
+            kept, scale = (k, v), None
         o = attn.self_attention(q, k, v, causal=True,
-                                window=cfg.sliding_window,
+                                window=cfg.sliding_window, scale=scale,
                                 chunk=cfg.attn_chunk, use_kernel=use_kernel)
         o = o.reshape(*o.shape[:2], -1)
-        return h + o @ blk.attn["wo"], (k, v)
+        return h + o @ blk.attn["wo"], kept
 
     def _mlp(self, h, blk):
         hn = rms_norm(h, blk.ln2, self.cfg.norm_eps)
+        if self.cfg.num_experts:
+            y, _ = moe.moe_ffn_sharded(hn, blk.mlp, self.cfg)
+            return h + y
         return h + swiglu(hn, blk.mlp["w_gate"], blk.mlp["w_up"],
                           blk.mlp["w_down"])
 
@@ -237,24 +319,40 @@ class Model(nn.Module):
             raise ValueError(f"prompt of {s} tokens exceeds max_len "
                              f"{max_len}")
         positions = torch.arange(s, device=self.device)[None, :]
+        cache = self.empty_cache(b, max_len)
         ring = bool(cfg.swa_ring and cfg.sliding_window)
-        shape = (cfg.num_layers, b, cfg.sliding_window if ring else max_len,
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        k_cache = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        v_cache = torch.zeros(shape, dtype=self.dtype, device=self.device)
         for i, blk in enumerate(self.layers):
-            h, (k, v) = self._attn_full(h, blk, positions, use_kernel)
+            h, kept = self._attn_full(h, blk, positions, use_kernel)
             h = self._mlp(h, blk)
-            if ring:
-                k_cache[i] = self._to_ring(k, s)
-                v_cache[i] = self._to_ring(v, s)
+            if cfg.attn_type == "mla":
+                cache["latent"][i, :, :s] = kept
+            elif ring:
+                cache["k"][i] = self._to_ring(kept[0], s)
+                cache["v"][i] = self._to_ring(kept[1], s)
             else:
-                k_cache[i, :, :s] = k
-                v_cache[i, :, :s] = v
+                cache["k"][i, :, :s] = kept[0]
+                cache["v"][i, :, :s] = kept[1]
         h = rms_norm(h, self.final_ln, cfg.norm_eps)
         logits = unembed(h[:, -1:], self.unembed, cfg)
-        pos = torch.tensor(s, dtype=torch.int32, device=self.device)
-        return logits, {"k": k_cache, "v": v_cache, "pos": pos}
+        cache["pos"] = torch.tensor(s, dtype=torch.int32, device=self.device)
+        return logits, cache
+
+    def empty_cache(self, batch: int, max_len: int) -> dict:
+        """The zeroed decode cache of an attention model for `batch`
+        sequences of up to `max_len` tokens, without "pos": MLA's latent,
+        or K and V (the `swa_ring` ring holds the window)."""
+        cfg = self.cfg
+        if cfg.attn_type == "mla":
+            shapes = {"latent": (cfg.num_layers, batch, max_len,
+                                 cfg.kv_lora_rank + cfg.qk_rope_dim)}
+        else:
+            ring = bool(cfg.swa_ring and cfg.sliding_window)
+            kv = (cfg.num_layers, batch,
+                  cfg.sliding_window if ring else max_len,
+                  cfg.num_kv_heads, cfg.resolved_head_dim)
+            shapes = {"k": kv, "v": kv}
+        return {key: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                for key, shape in shapes.items()}
 
     def _to_ring(self, k, s):
         """§Perf: one layer's full-length K/V (B,S,H,D) as a sliding-window
@@ -329,11 +427,17 @@ class Model(nn.Module):
             return self._decode_ssm(cache, h, pos)
         positions = pos.reshape(1, 1) if pos.dim() == 0 else pos[:, None]
         for i, blk in enumerate(self.layers):
-            h = self._gqa_decode_block(h, blk, cache["k"][i], cache["v"][i],
-                                       pos, positions, use_kernel)
+            if cfg.attn_type == "mla":
+                h = self._mla_decode_block(h, blk, cache["latent"][i], pos,
+                                           positions, use_kernel)
+            else:
+                h = self._gqa_decode_block(h, blk, cache["k"][i],
+                                           cache["v"][i], pos, positions,
+                                           use_kernel)
         h = rms_norm(h, self.final_ln, cfg.norm_eps)
         logits = unembed(h, self.unembed, cfg)
-        return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+        new = {key: t for key, t in cache.items() if key != "pos"}
+        return logits, {**new, "pos": pos + 1}
 
     def _decode_ssm(self, cache, h, pos):
         """Every layer's one-token Mamba2 block, its conv history and
@@ -367,6 +471,60 @@ class Model(nn.Module):
         o = o.reshape(*o.shape[:2], -1)
         h = h + o @ blk.attn["wo"]
         return self._mlp(h, blk)
+
+    def _mla_decode_block(self, h, blk, latent_cache, pos, positions,
+                          use_kernel):
+        """MLA decode: write this token's latent into the cache in place
+        at `pos`, expand K/V from the whole latent cache (the reference's
+        naive materialization) and attend with pos + 1 valid rows, or,
+        with `mla_absorb`, attend against the latent itself."""
+        cfg = self.cfg
+        hn = rms_norm(h, blk.ln1, cfg.norm_eps)
+        q = self._mla_q(hn, blk.attn, positions)
+        lat_new = self._mla_latent(hn, blk.attn, positions)
+        attn.write_row(latent_cache, lat_new, pos)
+        scale = self._mla_scale()
+        if cfg.mla_absorb:
+            o = self._mla_absorbed_attention(q, latent_cache, blk.attn, pos,
+                                             scale)
+        else:
+            k, v = self._mla_kv_from_latent(latent_cache, blk.attn)
+            o = attn.decode_attention(q, k, v, pos + 1, scale=scale,
+                                      use_kernel=use_kernel)
+        o = o.reshape(*o.shape[:2], -1)
+        h = h + o @ blk.attn["wo"]
+        return self._mlp(h, blk)
+
+    def _mla_absorbed_attention(self, q, latent_cache, ap, pos, scale):
+        """Absorbed-matmul MLA decode (the reference's §Perf option, in
+        plain PyTorch as the reference computes it in jnp, float32): fold
+        k_up into the query and v_up into the output, so attention runs
+        against the compressed latent cache and per-head K/V of shape
+        (B, S, H, d) are never made."""
+        cfg = self.cfg
+        s_max = latent_cache.shape[1]
+        heads = cfg.num_heads
+        q_nope, q_rope = torch.split(q[:, 0], [cfg.qk_nope_dim,
+                                               cfg.qk_rope_dim], dim=-1)
+        k_up = ap["k_up"].reshape(cfg.kv_lora_rank, heads, cfg.qk_nope_dim)
+        # q_eff[b,h,r] = sum_d q_nope[b,h,d] * k_up[r,h,d]
+        q_eff = torch.einsum("bhd,rhd->bhr", q_nope.float(), k_up.float())
+        c_kv, k_rope = torch.split(latent_cache,
+                                   [cfg.kv_lora_rank, cfg.qk_rope_dim],
+                                   dim=-1)
+        c_kv = c_kv.float()
+        scores = (torch.einsum("bhr,bsr->bhs", q_eff, c_kv)
+                  + torch.einsum("bhd,bsd->bhs", q_rope.float(),
+                                 k_rope.float())) * scale
+        idx = torch.arange(s_max, device=q.device)[None, None, :]
+        p = pos if pos.dim() == 0 else pos[:, None, None]
+        scores = torch.where(idx < p + 1, scores, attn.NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out_lat = torch.einsum("bhs,bsr->bhr", probs, c_kv)
+        v_up = ap["v_up"].reshape(cfg.kv_lora_rank, heads, cfg.v_head_dim)
+        o = torch.einsum("bhr,rhd->bhd", out_lat, v_up.float())
+        return o[:, None].to(q.dtype)
+
 
 
 def _tensor(a) -> torch.Tensor:

@@ -11,9 +11,12 @@ completion -> `finish_request`/`free_memory`. The manager's Selective
 Core Idling runs on a wall-clock period, so an idle engine deep-idles its
 host cores (age-halting) and a bursty one wakes them.
 
-Differences from the reference: the model (`repro_torch.models.Model`)
-carries its own weights, so the engine takes no `params`; the cache is
-updated in place. For the
+It serves the decoder-only families the port runs: dense and
+mixture-of-experts models with GQA or MLA attention (an MLA cache holds
+the compressed latent per slot) and Mamba2. Differences from the
+reference: the model (`repro_torch.models.Model`) carries its own
+weights, so the engine takes no `params`; the cache is updated in
+place. For the
 ssm family the cache holds W-1 rows of conv history per slot, where the
 reference's engine sizes it from a one-token prefill and holds one
 (ROADMAP R6).
@@ -101,14 +104,10 @@ class InferenceEngine:
                       "state": ((cfg.num_layers, b, cfg.ssm_heads,
                                  cfg.ssm_head_dim, cfg.ssm_state),
                                 torch.float32)}
-        else:
-            ring = cfg.swa_ring and cfg.sliding_window
-            kv = (cfg.num_layers, b,
-                  cfg.sliding_window if ring else self.max_len,
-                  cfg.num_kv_heads, cfg.resolved_head_dim)
-            shapes = {"k": (kv, dtype), "v": (kv, dtype)}
-        cache = {key: torch.zeros(shape, dtype=dt, device=dev)
-                 for key, (shape, dt) in shapes.items()}
+            cache = {key: torch.zeros(shape, dtype=dt, device=dev)
+                     for key, (shape, dt) in shapes.items()}
+        else:   # K and V, or MLA's latent (Model.empty_cache)
+            cache = self.model.empty_cache(b, self.max_len)
         cache["pos"] = torch.zeros(b, dtype=torch.int32, device=dev)
         return cache
 

@@ -247,6 +247,35 @@ class TestWrappers:
             assert all(x % 16 == 0 for x in geo[4:7])
             assert geo[7] * 2 in (64, 128)
 
+    def test_tensor_map_geometry_of_mla_heads(self):
+        """MiniCPM3's prefill: q and k rows of 96 bf16 values take a
+        64-byte swizzle (boxes of 32 columns, three to a row), v its own
+        D of 64 with the 128-byte swizzle."""
+        b, s, h = 1, 1024, 40
+        q = torch.zeros(b, s, h, 96, dtype=torch.bfloat16)
+        v = torch.zeros(b, s, h, 64, dtype=torch.bfloat16)
+        assert fa_ops.tensor_map_geometry(q, fa_ops.BLOCK_Q) == (
+            96, h, s, b, 192, h * 192, h * 192 * s, 32, 1, 128, 1)
+        assert fa_ops.tensor_map_geometry(q, fa_ops.BLOCK_KV)[7:] == (
+            32, 1, 64, 1)
+        assert fa_ops.tensor_map_geometry(v, fa_ops.BLOCK_KV) == (
+            64, h, s, b, 128, h * 128, h * 128 * s, 64, 1, 64, 1)
+
+    def test_instances_of_the_cuda_kernels(self):
+        """The CUDA wrappers' checks: the four (q/k, v) pairs in both
+        dtypes pass; Zamba2's (112, 112) is refused naming the hybrid
+        item, as is any other pair or dtype."""
+        for d, dv in ((32, 32), (64, 64), (128, 128), (96, 64)):
+            for dtype in (torch.float32, torch.bfloat16):
+                fa_ops.check_instance("attention_bhsd", dtype, d, dv)
+        for d, dv in ((112, 112), (96, 96), (64, 96), (48, 48)):
+            with pytest.raises(ValueError, match=r"head dims in"):
+                fa_ops.check_instance("decode_bhd", torch.bfloat16, d, dv)
+        with pytest.raises(ValueError, match="hybrid family, ROADMAP A10"):
+            fa_ops.check_instance("attention_bhsd", torch.bfloat16, 112, 112)
+        with pytest.raises(ValueError, match="float16"):
+            fa_ops.check_instance("attention_bhsd", torch.float16, 96, 64)
+
     def test_tensor_map_geometry_of_unit_dims(self):
         """Size-1 dims get packed strides, whatever the view says."""
         t = torch.zeros(1, 300, 16, 128, dtype=torch.bfloat16)[:, :, 3:4]
@@ -348,15 +377,23 @@ class TestModelAttention:
         _close(port, ref, **tol("float32"))
 
     def test_mla_head_dims_refused_off_the_cpu(self):
-        """Off the CPU the wrappers raise for Dv != D, naming MLA's
-        ROADMAP items, and never take the plain route."""
+        """Off the CPU MLA's (96, 64) passes the wrappers' checks (here, on
+        the meta device, it reaches the device check); a v head dim other
+        than q's that is no instance of the kernels is refused, with or
+        without the kernel, and never takes the plain route."""
         q = torch.zeros(1, 8, 4, 96, device="meta")
         v = torch.zeros(1, 8, 4, 64, device="meta")
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fa_ops.attention_bhsd(q, q, v)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            dec_ops.decode_bhd(q[:, 0], q, v, 1)
+        odd = torch.zeros(1, 8, 4, 32, device="meta")
         for use_kernel in (True, False):
-            with pytest.raises(ValueError, match="A10/A11"):
-                fa_ops.attention_bhsd(q, q, v, use_kernel=use_kernel)
-            with pytest.raises(ValueError, match="A10/A11"):
-                dec_ops.decode_bhd(q[:, 0], q, v, 1, use_kernel=use_kernel)
+            with pytest.raises(ValueError, match="no instance"):
+                fa_ops.attention_bhsd(q, q, odd, use_kernel=use_kernel)
+            with pytest.raises(ValueError, match="no instance"):
+                dec_ops.decode_bhd(q[:, 0], q, odd, 1,
+                                   use_kernel=use_kernel)
 
     def test_cpu_path_launches_no_kernel(self):
         q, k, v = (torch.from_numpy(x) for x in

@@ -3,8 +3,9 @@ version, the fleet engine on CUDA against the same engine on the CPU and,
 under each fault model it vectorizes, against its numpy backend, the
 event engine's torch settler on CUDA against its numpy settler (under
 guardband faults too), a padded mixed fleet and a checkpoint resume on
-CUDA, the checkpoint store onto the card, the dense model and serving
-engine through the attention kernels, and the Mamba2 model and engine
+CUDA, the checkpoint store onto the card, the dense, mixture-of-experts
+and MLA models and serving engine through the attention kernels (MLA's
+(96, 64) head dims an instance of both), and the Mamba2 model and engine
 through the SSD scan kernel. Every test here needs an NVIDIA GPU and skips without one; this
 file imports neither jax nor the reference, so it runs on a machine that
 has only the port's dependencies:
@@ -305,18 +306,24 @@ def test_event_settler_on_cuda_under_guardband(cuda_device):
             assert delta < BACKEND_BOUNDS[key], (policy, key)
 
 
-def test_attention_kernels_refuse_mla_head_dims(cuda_device):
-    """F1: B2 and B3 have no instance for a v head dim other than q's;
-    on CUDA their wrappers raise, naming MLA's ROADMAP items, launch
-    nothing and take no plain route."""
+def test_attention_kernels_refuse_other_head_dim_pairs(cuda_device):
+    """B2 and B3 have instances for equal head dims of 32, 64 and 128 and
+    for MLA's (96, 64) only: on CUDA their wrappers raise for any other
+    pair (Zamba2's 112 naming the hybrid item), launch nothing, and take
+    no plain route for a v head dim other than q's."""
     q, v = _draw(cuda_device, torch.bfloat16, 0, (1, 8, 4, 96),
-                 (1, 8, 4, 64))
+                 (1, 8, 4, 32))
+    z = _draw(cuda_device, torch.bfloat16, 0, (1, 8, 4, 112))[0]
     before = (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches)
     for use_kernel in (True, False):
-        with pytest.raises(ValueError, match="A10/A11"):
+        with pytest.raises(ValueError, match="no instance"):
             fa_ops.attention_bhsd(q, q, v, use_kernel=use_kernel)
-        with pytest.raises(ValueError, match="A10/A11"):
+        with pytest.raises(ValueError, match="no instance"):
             dec_ops.decode_bhd(q[:, 0], q, v, 4, use_kernel=use_kernel)
+    with pytest.raises(ValueError, match="hybrid family"):
+        fa_ops.attention_bhsd(z, z, z)
+    with pytest.raises(ValueError, match="hybrid family"):
+        dec_ops.decode_bhd(z[:, 0], z, z, 4)
     assert (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches) == before
 
 
@@ -371,11 +378,11 @@ def test_decode_kernel_matches_plain_version(cuda_device, b, h, hkv, s, d,
     torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
 
 
-def _flash_hold(device, b, h, hkv, sq, skv, d, seed=0, **kw):
+def _flash_hold(device, b, h, hkv, sq, skv, d, seed=0, dv=None, **kw):
     """The bfloat16 (tensor-core) flash kernel against its plain version
     at the reference's bfloat16 tolerance; one launch."""
     q, k, v = _draw(device, torch.bfloat16, seed, (b, sq, h, d),
-                    (b, skv, hkv, d), (b, skv, hkv, d))
+                    (b, skv, hkv, d), (b, skv, hkv, dv or d))
     before = fa_ops.KERNEL.launches
     out = fa_ops.attention_bhsd(q, k, v, **kw)
     assert fa_ops.KERNEL.launches == before + 1
@@ -422,9 +429,9 @@ def test_flash_tc_q_offset(cuda_device, causal, window):
 
 
 def _decode_hold(device, b, h, hkv, s, d, lens, dtype=torch.bfloat16,
-                 window=0, seed=1):
+                 window=0, seed=1, dv=None):
     q, kc, vc = _draw(device, dtype, seed, (b, h, d), (b, s, hkv, d),
-                      (b, s, hkv, d))
+                      (b, s, hkv, dv or d))
     pos = torch.tensor(lens, dtype=torch.int32, device=device)
     before = dec_ops.KERNEL.launches
     out = dec_ops.decode_bhd(q, kc, vc, pos, window=window)
@@ -455,6 +462,58 @@ def test_decode_kernel_batch_one(cuda_device):
 @pytest.mark.parametrize("d", [64, 128])
 def test_decode_kernel_sixteen_heads_per_cache_head(cuda_device, d):
     _decode_hold(cuda_device, 2, 32, 2, 1024, d, [999, 17])
+
+
+# MLA (MiniCPM3): q/k head dim 96 (qk_nope 64 + qk_rope 32), v head dim 64,
+# 40 heads over 40
+@pytest.mark.parametrize("b,h,s,window", [(1, 40, 1024, 0), (2, 8, 300, 0),
+                                          (1, 4, 129, 0), (2, 4, 700, 96)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_mla_head_dims(cuda_device, b, h, s, window, dtype):
+    """B2's (96, 64) instance, causal, against its plain version in both
+    dtypes: the 64-byte swizzle of q and k (three boxes of 32 columns) and
+    v's own 128-byte tile in bfloat16, the CUDA-core kernel in float32."""
+    q, k, v = _draw(cuda_device, dtype, 5, (b, s, h, 96), (b, s, h, 96),
+                    (b, s, h, 64))
+    before = fa_ops.KERNEL.launches
+    out = fa_ops.attention_bhsd(q, k, v, window=window)
+    assert fa_ops.KERNEL.launches == before + 1
+    assert out.shape == (b, s, h, 64)
+    ref = fa_ops.attention_bhsd(q, k, v, window=window, use_kernel=False)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+def test_flash_tc_mla_q_offset_and_scale(cuda_device):
+    """A chunk of queries after a prefix, MLA's scale (96 ** -0.5)."""
+    _flash_hold(cuda_device, 1, 8, 8, 100, 300, 96, dv=64, q_offset=200,
+                scale=96 ** -0.5)
+
+
+@pytest.mark.parametrize("lens", [[1536, 1, 700, 9], 1000],
+                         ids=["slots", "scalar"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_mla_head_dims(cuda_device, lens, dtype):
+    """B3's (96, 64) instance against its plain version: q (4, 40, 96)
+    against caches (4, 1,536, 40, 96) and (4, 1,536, 40, 64), with a
+    per-slot and a scalar pos."""
+    b, h, s = 4, 40, 1536
+    q, kc, vc = _draw(cuda_device, dtype, 6, (b, h, 96), (b, s, h, 96),
+                      (b, s, h, 64))
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dec_ops.KERNEL.launches
+    out = dec_ops.decode_bhd(q, kc, vc, pos, scale=96 ** -0.5)
+    assert dec_ops.KERNEL.launches == before + 1
+    assert out.shape == (b, h, 64)
+    ref = dec_ops.decode_bhd(q, kc, vc, pos, scale=96 ** -0.5,
+                             use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("hkv", [8, 2])
+def test_decode_kernel_mla_head_dims_grouped(cuda_device, hkv):
+    """The (96, 64) instance under the kG = 4 and 16 groupings too."""
+    _decode_hold(cuda_device, 2, 32, hkv, 1024, 96, [999, 17], dv=64)
 
 
 def test_decode_kernel_replays_in_a_cuda_graph(cuda_device):
@@ -532,6 +591,70 @@ def test_engine_on_cuda_matches_cpu(cuda_device):
     kernels) gives the CPU engine's greedy tokens at float32."""
     cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
                               dtype="float32")
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    on_gpu = Model(cfg, device=cuda_device, seed=0)
+    on_gpu.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 999, n).tolist() for n in (5, 12, 7, 9)]
+    outputs = []
+    for model in (on_cpu, on_gpu):
+        eng = InferenceEngine(model, max_batch=2, max_len=32,
+                              clock=lambda: 0.0)
+        reqs = []
+        for p in prompts:
+            eng.submit(p, 5)
+            reqs.append(eng.pending[-1])
+        eng.run_until_drained()
+        outputs.append([r.output for r in reqs])
+    assert outputs[0] == outputs[1]
+
+
+# MiniCPM3's smoke config at MLA's head dims of the full model (qk_nope 64
+# + qk_rope 32, v 64), the instance the kernels have; the smoke's own
+# 16 + 8 / 16 are no instance
+MLA_SMOKE = dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64)
+MOE_MLA = {"granite-moe-3b-a800m": {}, "minicpm3-4b": MLA_SMOKE,
+           "minicpm3-4b-absorb": dict(MLA_SMOKE, mla_absorb=True)}
+
+
+def _moe_mla_cfg(name):
+    return dataclasses.replace(get_smoke_config(name.replace("-absorb", "")),
+                               dtype="float32", **MOE_MLA[name])
+
+
+@pytest.mark.parametrize("name", sorted(MOE_MLA))
+def test_moe_and_mla_models_go_through_both_kernels(cuda_device, name):
+    """granite-moe (GQA at head dim 32, experts in torch) and minicpm3
+    (MLA at (96, 64)) smoke models at float32: prefill one flash launch
+    per layer, decode one decode launch per layer (none with
+    `mla_absorb`, whose attention is plain PyTorch); the kernel path
+    agrees with the plain path to the kernels' float32 bound."""
+    cfg = _moe_mla_cfg(name)
+    model = Model(cfg, device=cuda_device, seed=0)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, 1000, (2, 40)),
+                        device=cuda_device)
+    fa_ops.KERNEL.launches = dec_ops.KERNEL.launches = 0
+    logits, cache = model.prefill(toks, max_len=48)
+    plain, plain_cache = model.prefill(toks, max_len=48, use_kernel=False)
+    torch.testing.assert_close(logits, plain, rtol=1e-4, atol=1e-4)
+    cache["pos"] = plain_cache["pos"] = torch.tensor(
+        [40, 33], dtype=torch.int32, device=cuda_device)
+    tok = toks[:, -1:]
+    for _ in range(3):
+        logits, cache = model.decode_step(cache, tok)
+        plain, plain_cache = model.decode_step(plain_cache, tok,
+                                               use_kernel=False)
+        torch.testing.assert_close(logits, plain, rtol=1e-4, atol=1e-4)
+    assert fa_ops.KERNEL.launches == cfg.num_layers
+    assert dec_ops.KERNEL.launches == (0 if cfg.mla_absorb
+                                       else 3 * cfg.num_layers)
+
+
+@pytest.mark.parametrize("name", sorted(MOE_MLA))
+def test_moe_and_mla_engine_on_cuda_matches_cpu(cuda_device, name):
+    """Same weights, same prompts: the engine on the card gives the CPU
+    engine's greedy tokens at float32."""
+    cfg = _moe_mla_cfg(name)
     on_cpu = Model(cfg, device="cpu", seed=0)
     on_gpu = Model(cfg, device=cuda_device, seed=0)
     on_gpu.load_state_dict(on_cpu.state_dict())

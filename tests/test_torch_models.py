@@ -9,7 +9,9 @@ bfloat16 to the reference's own `test_decode_matches_prefill` bound
 two frameworks (for one, XLA and PyTorch fuse SiLU differently). On the
 CPU the Mamba2 prefill's scan is `mamba2.ssd_chunked`, what the
 reference's model computes; its CUDA kernel is held on the card
-(`tests/test_torch_cuda.py`).
+(`tests/test_torch_cuda.py`). The mixture-of-experts models
+(granite-moe-3b-a800m, mixtral-8x22b) and MLA (minicpm3-4b, with
+`mla_absorb` off and on) are held the same way.
 """
 from __future__ import annotations
 
@@ -34,9 +36,13 @@ from repro_torch.models import layers
 BOUNDS = {"float32": dict(rtol=1e-4, atol=1e-4),
           "bfloat16": dict(rtol=0.08, atol=0.15)}
 DENSE = ["granite-3-8b", "llama3-8b", "phi3-medium-14b"]
-UNPORTED = {"minicpm3-4b": "MLA", "mixtral-8x22b": "mixture-of-experts",
-            "granite-moe-3b-a800m": "mixture-of-experts",
-            "zamba2-7b": "hybrid family",
+MOE_MLA = ["granite-moe-3b-a800m", "mixtral-8x22b", "minicpm3-4b"]
+# (arch, overrides): MLA's decode with and without the absorbed path
+MOE_MLA_CASES = {"granite-moe-3b-a800m": ("granite-moe-3b-a800m", {}),
+                 "mixtral-8x22b": ("mixtral-8x22b", {}),
+                 "minicpm3-4b": ("minicpm3-4b", {}),
+                 "minicpm3-4b-absorb": ("minicpm3-4b", {"mla_absorb": True})}
+UNPORTED = {"zamba2-7b": "hybrid family",
             "seamless-m4t-large-v2": "encoder-decoder",
             "internvl2-2b": "vision frontend"}
 
@@ -198,6 +204,41 @@ class TestLogitsMatchReference:
         np.testing.assert_array_equal(cache["pos"].numpy(),
                                       np.asarray(ref_cache["pos"]))
 
+    @pytest.mark.parametrize("case", sorted(MOE_MLA_CASES))
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_moe_and_mla(self, case, dtype):
+        """Prefill, then four decode steps with a per-slot pos (one slot
+        five tokens behind the other), every cache the reference keeps
+        (MLA: the latent) and every logit at `BOUNDS`."""
+        arch, overrides = MOE_MLA_CASES[case]
+        ref, params, port = _pair(arch, dtype, **overrides)
+        vocab = port.cfg.vocab_size
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, vocab, (2, 12))
+        ref_logits, ref_cache = ref.prefill(
+            params, jnp.asarray(toks, jnp.int32), None, max_len=20)
+        logits, cache = port.prefill(torch.from_numpy(toks), max_len=20)
+        assert set(cache) == set(ref_cache)
+        np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                   _np(ref_logits)[..., :vocab],
+                                   **BOUNDS[dtype])
+        for key in set(cache) - {"pos"}:
+            assert cache[key].shape == ref_cache[key].shape
+            np.testing.assert_allclose(_np(cache[key]), _np(ref_cache[key]),
+                                       **BOUNDS[dtype])
+        ref_cache["pos"] = jnp.asarray([12, 7], jnp.int32)
+        cache["pos"] = torch.tensor([12, 7], dtype=torch.int32)
+        for _ in range(4):
+            tok = rng.integers(0, vocab, (2, 1))
+            ref_logits, ref_cache = ref.decode_step(
+                params, ref_cache, jnp.asarray(tok, jnp.int32))
+            logits, cache = port.decode_step(cache, torch.from_numpy(tok))
+            np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                       _np(ref_logits)[..., :vocab],
+                                       **BOUNDS[dtype])
+        np.testing.assert_array_equal(cache["pos"].numpy(),
+                                      np.asarray(ref_cache["pos"]))
+
     @pytest.mark.parametrize("ring", [False, True], ids=["window", "ring"])
     def test_sliding_window(self, ring):
         """A window of 8 over 12 prompt tokens and 6 decode steps, as a
@@ -220,12 +261,17 @@ class TestLogitsMatchReference:
             logits, cache = port.decode_step(cache, torch.from_numpy(tok))
 
 
-@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b"])
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b"] + MOE_MLA)
 def test_decode_matches_prefill(arch):
     """`tests/test_models.py::test_decode_matches_prefill` on the port:
     decoding token t with the cache of tokens [0..t) reproduces the
-    full-prefill logits at t (the smoke configs are bfloat16)."""
+    full-prefill logits at t (the smoke configs are bfloat16). As there,
+    MoE's capacity drops depend on the sequence length, so its capacity
+    factor is raised to the expert count, where none drop."""
     cfg = get_smoke_config(arch)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=float(cfg.num_experts))
     model = Model(cfg, device="cpu", seed=2)
     tokens = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)))
@@ -252,6 +298,39 @@ def test_state_dict_names_match_params_from_jax():
     assert state.keys() == model.state_dict().keys()
     for name, t in model.state_dict().items():
         assert state[name].shape == t.shape, name
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_moe_and_mla_state_dict_names_match_params_from_jax(arch):
+    """The reference's MoE (router, stacked experts) and MLA (low-rank
+    projections) trees convert name for name, shape for shape and dtype
+    for dtype (the router stays float32 in a bfloat16 model)."""
+    cfg = get_smoke_config(arch)
+    params = RefModel(cfg).init(jax.random.key(0))
+    state = params_from_jax(cfg, jax.tree.map(np.asarray, params))
+    model = Model(cfg, device="cpu")
+    assert state.keys() == model.state_dict().keys()
+    for name, t in model.state_dict().items():
+        assert state[name].shape == t.shape, name
+        assert state[name].dtype == t.dtype, name
+    if cfg.num_experts:
+        assert model.layers[0].mlp["router"].dtype == torch.float32
+        assert model.layers[0].mlp["w_gate"].shape == (
+            cfg.num_experts, cfg.d_model, cfg.d_ff)
+    else:
+        assert "kv_down" in model.layers[0].attn
+
+
+@pytest.mark.parametrize("arch", MOE_MLA)
+def test_full_moe_and_mla_configs_are_ported(arch, monkeypatch):
+    """The full configs pass the port's check (mixtral-8x22b's 281 GB
+    fit no single card: it is held at its smoke size) and, without a
+    card, refuse at the device before allocating anything."""
+    from repro_torch.models.model import check_supported
+    check_supported(get_config(arch))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(get_config(arch))
 
 
 def test_bfloat16_params_convert_bit_for_bit():

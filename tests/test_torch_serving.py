@@ -1,7 +1,8 @@
 """Serving engine of the port (`repro_torch.serving.engine`) against the
-reference, on the CPU, on the float32 smoke configs of llama3-8b and
-mamba2-2.7b with the reference's parameters (`params_from_jax`) and a
-fake clock.
+reference, on the CPU, on the float32 smoke configs of llama3-8b,
+mamba2-2.7b, granite-moe-3b-a800m (mixture of experts) and minicpm3-4b
+(MLA: a latent cache per slot) with the reference's parameters
+(`params_from_jax`) and a fake clock.
 
 - The port engine's greedy tokens equal the reference model's sequential
   prefill and decode (in this process: `repro.models` imports on Python
@@ -58,7 +59,8 @@ CASES = {
                [3, 6, 4, 5, 3]),
 }
 
-ARCHS = ("llama3-8b", "mamba2-2.7b")
+ARCHS = ("llama3-8b", "mamba2-2.7b", "granite-moe-3b-a800m", "minicpm3-4b")
+MOE_MLA = ("granite-moe-3b-a800m", "minicpm3-4b")
 
 _CHILD = r'''
 import jax
@@ -262,6 +264,66 @@ class TestMamba2:
 
     def test_serve_cli_on_cpu(self, capsys):
         serve.main(["--arch", "mamba2-2.7b", "--smoke", "--device", "cpu",
+                    "--requests", "3", "--new-tokens", "3"])
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0].startswith("served 3 requests / 9 tokens")
+        assert lines[1].startswith("host CPU [proposed]: cores_active=")
+
+
+@pytest.fixture(scope="module")
+def moe_mla_models():
+    """{arch: (port model, (reference model, params))} for MOE_MLA."""
+    out = {}
+    for arch in MOE_MLA:
+        ref = _ref_pair(arch)
+        out[arch] = (_port(arch, ref[1]), ref)
+    return out
+
+
+class TestMoeAndMla:
+    """The same engine serving granite-moe-3b-a800m and minicpm3-4b."""
+
+    @pytest.mark.parametrize("arch", MOE_MLA)
+    def test_tokens_equal_reference_sequential_decode(self, moe_mla_models,
+                                                      arch):
+        model, ref = moe_mla_models[arch]
+        outputs, wants = _sequential(model, ref)
+        assert outputs == wants
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    @pytest.mark.parametrize("arch", MOE_MLA)
+    def test_tokens_equal_reference_engine(self, moe_mla_models, reference,
+                                           arch, case):
+        _, outputs = _serve(moe_mla_models[arch][0], *CASES[case])
+        assert outputs == reference[arch][case]["outputs"]
+        assert [len(o) for o in outputs] == CASES[case][5]
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    @pytest.mark.parametrize("arch", MOE_MLA)
+    def test_host_cpu_report_equals_reference(self, moe_mla_models,
+                                              reference, arch, case):
+        eng, _ = _serve(moe_mla_models[arch][0], *CASES[case])
+        report = json.loads(json.dumps(eng.host_cpu_report()))
+        assert report == reference[arch][case]["report"]
+
+    def test_mla_cache_is_the_latent(self, moe_mla_models):
+        model = moe_mla_models["minicpm3-4b"][0]
+        cfg = model.cfg
+        eng = InferenceEngine(model, max_batch=3, max_len=20)
+        assert set(eng.cache) == {"latent", "pos"}
+        assert eng.cache["latent"].shape == (
+            cfg.num_layers, 3, 20, cfg.kv_lora_rank + cfg.qk_rope_dim)
+        assert eng.cache["latent"].dtype == model.dtype
+
+    def test_moe_cache_is_k_and_v(self, moe_mla_models):
+        model = moe_mla_models["granite-moe-3b-a800m"][0]
+        eng = InferenceEngine(model, max_batch=3, max_len=20)
+        assert set(eng.cache) == {"k", "v", "pos"}
+        assert eng.cache["k"].shape == (2, 3, 20, 2, 32)
+
+    @pytest.mark.parametrize("arch", MOE_MLA)
+    def test_serve_cli_on_cpu(self, capsys, arch):
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                     "--requests", "3", "--new-tokens", "3"])
         lines = capsys.readouterr().out.strip().splitlines()
         assert lines[0].startswith("served 3 requests / 9 tokens")
