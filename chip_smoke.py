@@ -28,7 +28,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    without a window) and MiniCPM3 gives them in phase 7 (MLA: q/k head
    dim 96, v head dim 64, 40 heads over 40; prefill q (1, 1,024, 40,
    96) causal, decode q (4, 40, 96) against caches (4, 1,536, 40, 96) and
-   (4, 1,536, 40, 64)), in both dtypes, timed as in phase 2, and beside
+   (4, 1,536, 40, 64)), Zamba2-7B gives them in phase 8 (the shared
+   block: head dim 112, 32 heads over 32; prefill q (1, 1,024, 32, 112)
+   causal, decode q (4, 32, 112) against (4, 1,536, 32, 112) caches) and
+   Seamless's encoder gives the prefill kernel in phase 10 ((1, 1,024,
+   16, 64), bidirectional), in both dtypes, timed as in phase 2, and beside
    them one PyTorch call that computes the same function
    (`scaled_dot_product_attention`, `library_ms`, the backend it chose
    named), timed the same way and used nowhere in the port; each line
@@ -37,7 +41,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 2c. The SSD scan kernel against its plain versions: on the shapes of
    the reference's `TestSSDScanKernel` (float32 and bfloat16) against
    the sequential recurrence `ssd_scan_ref`, and on the shapes Mamba2-2.7B
-   gives it in phase 5 against the model's chunked scan `ssd_chunked`,
+   gives it in phase 5 and Zamba2-7B in phase 8 ((1, 1,024, 112 heads,
+   P 64), N 64) against the model's chunked scan `ssd_chunked`,
    the final state included; timed as in phase 2, with `ssd_chunked` as
    `plain_ms` (no single PyTorch call computes the scan: `library_ms`
    is null) and the recurrence, a Python loop of L steps, timed eagerly
@@ -131,6 +136,36 @@ Phases, each printing its own lines; any failure exits non-zero:
    `mla_absorb=True`, which attends against the latent in plain PyTorch:
    no B3 launch in its decode; its tokens are printed beside the default
    run's. The same two holds of the default path follow.
+8. Zamba2-7B at full width (81 Mamba2 layers and one shared attention +
+   MLP block after every 6 of them, 13 uses, head dim 112; bfloat16,
+   seed 0) with the same traffic, driven through `Model.prefill` and
+   `Model.decode_step` (the engine refuses the hybrid family, as the
+   reference's does): each request prefilled alone, then 4 at a time
+   decoded together with their caches stacked and a per-slot pos. Each
+   prefill launches the SSD scan once per Mamba2 layer and the prefill
+   attention once per use of the shared block; each decode step the
+   decode attention once per use. The same two holds follow.
+9. InternVL2-2B at full width (24 layers, bfloat16, seed 0) served through
+   the engine with the same traffic, text only (the engine passes no
+   frontend embeddings, as the reference's does); then 4 of the requests
+   again through `Model.prefill` and `Model.decode_step`, each behind 256
+   patch embeddings (normal, seed 1, at the embedding table's std), and
+   the two holds on these, the noisy path perturbing the patches as it
+   does the table.
+10. SeamlessM4T-Large-v2 at full width (24 encoder and 24 decoder layers,
+   bfloat16, seed 0): 8 requests of 1,024 frame embeddings (seed 2) and
+   decoder prompts of 4 to 64 tokens, 32 new tokens each, driven as in
+   phase 8 (the engine refuses encoder-decoder models). Each prefill
+   launches the prefill attention once per encoder layer
+   (bidirectional, counted apart by the wrapper as its "noncausal"
+   variant) and once per decoder layer (causal); each decode step the
+   decode attention once per decoder layer; cross-attention is plain
+   PyTorch, as the reference's jnp. The same two holds follow, the noisy
+   path perturbing the frames as it does the table (the floor of the
+   table alone is printed beside it); then the encoder's memory (the
+   cross-attention cache), kernel path against plain path, against a
+   floor of its own: the plain path with the frames perturbed
+   (`_hold_memory`).
 
 Phases 3, 3b, 3c, 3d and each serving run set every kernel's launch count
 to 0 just before each main run and read them all just after: a kernel of
@@ -220,31 +255,41 @@ SETTLE_TOL = dict(rtol=2e-6, atol=1e-8)
 SETTLE_T, SETTLE_DT = 5.0, 0.7
 SETTLE_CALLS = 200
 
-# (b, h, hkv, s, d, dv, window, dtype): the reference's
+# (b, h, hkv, s, d, dv, window, dtype, causal): the reference's
 # TestFlashAttentionKernel shapes in float32 and bfloat16, its windows in
 # both dtypes (bfloat16 runs the tensor-core kernel, float32 the CUDA-core
 # one), a window at the serve shape, Llama-3-8B's prefill (one request of S
-# tokens: 32 heads over 8 KV heads, head_dim 128), and MiniCPM3's (MLA: 40
-# heads over 40, q/k head dim 96, v head dim 64) in both dtypes
-FLASH_CASES = ([(b, h, hkv, s, d, d, 0, dt)
+# tokens: 32 heads over 8 KV heads, head_dim 128), MiniCPM3's (MLA: 40
+# heads over 40, q/k head dim 96, v head dim 64) and Zamba2's shared block
+# (32 heads over 32, head dim 112) in both dtypes, all causal; and
+# Seamless's encoder (16 heads over 16, head dim 64, 1,024 frames),
+# bidirectional
+FLASH_CASES = ([(b, h, hkv, s, d, d, 0, dt, True)
                 for dt in ("float32", "bfloat16")
                 for b, h, hkv, s, d in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                                         (1, 4, 1, 128, 128),
                                         (2, 2, 2, 192, 64))]
-               + [(1, 2, 2, 256, 64, 64, w, dt)
+               + [(1, 2, 2, 256, 64, 64, w, dt, True)
                   for dt in ("float32", "bfloat16") for w in (32, 128)]
-               + [(1, 32, 8, 1000, 128, 128, 256, "bfloat16")]
-               + [(1, 32, 8, s, 128, 128, 0, "bfloat16")
+               + [(1, 32, 8, 1000, 128, 128, 256, "bfloat16", True)]
+               + [(1, 32, 8, s, 128, 128, 0, "bfloat16", True)
                   for s in (128, 1000, 1024)]
-               + [(1, 40, 40, 1024, 96, 64, 0, dt)
+               + [(1, 40, 40, 1024, 96, 64, 0, dt, True)
+                  for dt in ("float32", "bfloat16")]
+               + [(1, 32, 32, 1024, 112, 112, 0, dt, True)
+                  for dt in ("float32", "bfloat16")]
+               + [(1, 16, 16, 1024, 64, 64, 0, dt, False)
                   for dt in ("float32", "bfloat16")])
-FLASH_MAIN = (1, 32, 8, 1024, 128, 128, 0, "bfloat16")
-FLASH_MLA = (1, 40, 40, 1024, 96, 64, 0, "bfloat16")
+FLASH_MAIN = (1, 32, 8, 1024, 128, 128, 0, "bfloat16", True)
+FLASH_MLA = (1, 40, 40, 1024, 96, 64, 0, "bfloat16", True)
+FLASH_ZAMBA = (1, 32, 32, 1024, 112, 112, 0, "bfloat16", True)
+FLASH_ENCODER = (1, 16, 16, 1024, 64, 64, 0, "bfloat16", False)
 # (b, h, hkv, s, d, dv, window, dtype): the reference's
 # TestDecodeAttentionKernel shapes and its window in both dtypes, a window
 # at the serve shape, Llama-3-8B's decode (4 slots against the
-# 1,536-position cache, pos drawn in [1, 1536]), and MiniCPM3's (40 heads
-# over 40, 96 / 64) in both dtypes
+# 1,536-position cache, pos drawn in [1, 1536]), MiniCPM3's (40 heads
+# over 40, 96 / 64) and Zamba2's shared block (32 heads over 32, 112) in
+# both dtypes
 DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                  for dt in ("float32", "bfloat16")
                  for b, h, hkv, s, d in ((1, 4, 4, 512, 64),
@@ -256,23 +301,32 @@ DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                 + [(4, 32, 8, 1536, 128, 128, 300, "bfloat16"),
                    (4, 32, 8, 1536, 128, 128, 0, "bfloat16")]
                 + [(4, 40, 40, 1536, 96, 64, 0, dt)
+                   for dt in ("float32", "bfloat16")]
+                + [(4, 32, 32, 1536, 112, 112, 0, dt)
                    for dt in ("float32", "bfloat16")])
 DECODE_MAIN = (4, 32, 8, 1536, 128, 128, 0, "bfloat16")
 DECODE_MLA = (4, 40, 40, 1536, 96, 64, 0, "bfloat16")
+DECODE_ZAMBA = (4, 32, 32, 1536, 112, 112, 0, "bfloat16")
 
 
 # (b, l, h, p, n, chunk, dtype): the reference's TestSSDScanKernel shapes
-# in float32 and bfloat16, and Mamba2-2.7B's prefill (one request of L
+# in float32 and bfloat16, Mamba2-2.7B's prefill (one request of L
 # tokens: 80 heads, P 64, N 128, bfloat16) at L = 1,024 and at 891, the
-# longest prompt of phase 5 and no multiple of the kernel's tile
+# longest prompt of phase 5 and no multiple of the kernel's tile, and
+# Zamba2-7B's (112 heads, P 64, N 64) at L = 1,024
 SSD_CASES = ([(b, l, h, p, n, chunk, dt)
               for dt in ("float32", "bfloat16")
               for b, l, h, p, n, chunk in ((1, 128, 2, 64, 128, 128),
                                            (2, 256, 4, 64, 64, 128),
                                            (1, 200, 2, 32, 64, 128),
                                            (2, 512, 1, 64, 128, 256))]
-             + [(1, l, 80, 64, 128, 256, "bfloat16") for l in (1024, 891)])
+             + [(1, l, 80, 64, 128, 256, "bfloat16") for l in (1024, 891)]
+             + [(1, 1024, 112, 64, 64, 256, "bfloat16")])
 SSD_MAIN = (1, 1024, 80, 64, 128, 256, "bfloat16")
+SSD_ZAMBA = (1, 1024, 112, 64, 64, 256, "bfloat16")
+# the models' shapes, held against the model's chunked scan; the others
+# against the sequential recurrence
+SSD_SERVE = {c for c in SSD_CASES if c[2] in (SSD_MAIN[2], SSD_ZAMBA[2])}
 # the final state, as tests/test_models.py::TestSSD holds h
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 # the tile at which the SSD scan's operations are counted for its bound:
@@ -302,6 +356,20 @@ SERVE_MOE = dict(SERVE, arch="granite-moe-3b-a800m")
 SERVE_MLA = dict(SERVE, arch="minicpm3-4b")
 # phase 7's run with mla_absorb=True: the same requests, fewer new tokens
 ABSORB_NEW_TOKENS = 8
+# phases 8 to 10: the hybrid, vision-frontend and encoder-decoder families
+# with the same traffic; Seamless's decoder prompts are short (a
+# translation's target prefix), its source the frame embeddings
+SERVE_HYBRID = dict(SERVE, arch="zamba2-7b")
+SERVE_VLM = dict(SERVE, arch="internvl2-2b")
+SERVE_ENCDEC = dict(SERVE, arch="seamless-m4t-large-v2", prompt_lens=(4, 64))
+# requests decoded together through Model.decode_step (per-slot pos), as
+# the engine's 4 slots would
+DIRECT_BATCH = 4
+# phase 9's second run: PATCH_REQUESTS requests behind 256 patch
+# embeddings (seed PATCH_SEED); phase 10's frame embeddings (seed
+# FRAME_SEED), one set of 1,024 per request; both normal, scaled to the
+# embedding table's std
+PATCH_REQUESTS, PATCH_SEED, FRAME_SEED = 4, 1, 2
 # Phase 4 holds the kernel path against the plain path (the kernels'
 # plain versions, `use_kernel=False`) on the engine's tokens, two ways:
 # - float32, the same architecture at full width (weights from seed 1) on
@@ -329,7 +397,11 @@ ABSORB_NEW_TOKENS = 8
 #   counted and printed, not held;
 # - the phase fails if more than ROUTE_FLIP_MAX of all routes differ, or
 #   if no step is held.
-# The dense, Mamba2 and MLA holds are the rules above, unchanged.
+# The dense, Mamba2 and MLA holds are the rules above, unchanged. A
+# frontend's embeddings (patches, frames) are perturbed with the table;
+# an encoder-decoder's memory is also held apart (`_hold_memory`), since
+# its frames' noise, through 24 bidirectional layers, loosens the
+# logits' floor.
 F32_RTOL, F32_ATOL = 1e-3, 1e-3
 ROUTE_FLIP_MAX = 1e-3
 F32_REQUESTS = 2
@@ -343,6 +415,23 @@ def log(msg: str) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def zero_launches(kernels) -> None:
+    """Set the launch counts of `kernels` to 0, their variants' too."""
+    for k in kernels:
+        k.launches = 0
+        k.variant_launches.clear()
+
+
+def read_launches(kernels) -> dict:
+    """The launch counts of `kernels` by name and, under "name/variant",
+    each variant's count that is not 0 (flash_attention's "noncausal")."""
+    out = {k.name: k.launches for k in kernels}
+    for k in kernels:
+        out.update({f"{k.name}/{v}": n for v, n in k.variant_launches.items()
+                    if n})
+    return out
 
 
 def rel(a: float, b: float) -> float:
@@ -518,7 +607,7 @@ def _flash_case(torch, np, case):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import attention_bhsd
-    b, h, hkv, s, d, dv, window, dtype = case
+    b, h, hkv, s, d, dv, window, dtype, causal = case
     rng = np.random.default_rng(s)
     q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda").to(getattr(torch, dtype))
@@ -530,14 +619,17 @@ def _flash_case(torch, np, case):
 
     def library():
         return F.scaled_dot_product_attention(
-            qb, kb, vb, attn_mask=band, is_causal=band is None,
+            qb, kb, vb, attn_mask=band, is_causal=causal and band is None,
             enable_gqa=True).transpose(1, 2)
 
     size = 2 if dtype == "bfloat16" else 4
-    visible = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-    return (lambda: attention_bhsd(q, k, v, window=window),
-            lambda: attention_bhsd(q, k, v, window=window, use_kernel=False),
-            library, sdpa_backend(torch, qb, kb, vb, band, band is None),
+    visible = sum(min(i + 1, window) if window else i + 1 for i in range(s)) \
+        if causal else s * s
+    return (lambda: attention_bhsd(q, k, v, causal=causal, window=window),
+            lambda: attention_bhsd(q, k, v, causal=causal, window=window,
+                                   use_kernel=False),
+            library,
+            sdpa_backend(torch, qb, kb, vb, band, causal and band is None),
             (b * s * h * (d + dv) + b * s * hkv * (d + dv)) * size,
             2 * (d + dv) * b * h * visible)
 
@@ -585,15 +677,20 @@ def phase_attention_kernels(torch, np):
     """flash_attention and decode_attention (kernels) vs their plain
     versions on the card; SDPA timed beside them. Returns the kernels
     line rows of the main-path shapes: Llama-3-8B's under each kernel's
-    name, MiniCPM3's (MLA) under "<name>/mla"."""
+    name, MiniCPM3's (MLA) under "<name>/mla", Zamba2's under
+    "<name>/zamba2", Seamless's encoder's under "flash_attention/encoder"."""
     rows = {}
     for name, cases, mains, make in (
             ("flash_attention", FLASH_CASES,
-             {FLASH_MAIN: "", FLASH_MLA: "/mla"}, _flash_case),
+             {FLASH_MAIN: "", FLASH_MLA: "/mla", FLASH_ZAMBA: "/zamba2",
+              FLASH_ENCODER: "/encoder"}, _flash_case),
             ("decode_attention", DECODE_CASES,
-             {DECODE_MAIN: "", DECODE_MLA: "/mla"}, _decode_case)):
+             {DECODE_MAIN: "", DECODE_MLA: "/mla", DECODE_ZAMBA: "/zamba2"},
+             _decode_case)):
         for case in cases:
-            b, h, hkv, s, d, dv, window, dtype = case
+            b, h, hkv, s, d, dv, window, dtype = case[:8]
+            causal = "" if len(case) == 8 else \
+                (" causal" if case[8] else " bidirectional")
             kernel, plain, library, backend, nbytes, ops = make(torch, np,
                                                                 case)
             out, ref, lib = kernel(), plain(), library()
@@ -616,7 +713,7 @@ def phase_attention_kernels(torch, np):
                    "bound_by": "bytes" if bytes_ms >= ops_ms
                    else "operations", "library_backend": backend}
             log(f"[{name}] b={b} h={h} hkv={hkv} s={s} d={d} dv={dv} "
-                f"window={window} {dtype}: max_abs_err {err:.3e} "
+                f"window={window}{causal} {dtype}: max_abs_err {err:.3e} "
                 f"({attention_tol(dtype)}) ok; per call on the device "
                 f"(CUDA graph) kernel {row['ms'] * 1e3:.3f} us, plain "
                 f"{row['plain_ms'] * 1e3:.3f} us, SDPA "
@@ -663,15 +760,16 @@ def _ssd_work(case):
 
 def phase_ssd_kernel(torch, np):
     """ssd_scan (kernel) vs its plain versions on the card. Returns the
-    kernels line row of the main-path shape."""
+    kernels line rows of the main-path shapes: Mamba2-2.7B's under
+    "ssd_scan", Zamba2-7B's under "ssd_scan/zamba2"."""
     from repro_torch.kernels.ssd_scan.ops import plan, ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.mamba2 import ssd_chunked
-    main_row = None
+    rows = {}
     for case in SSD_CASES:
         b, l, h, p, n, chunk, dtype = case
         args = _ssd_inputs(torch, np, case)
-        serve = h == SSD_MAIN[2]
+        serve = case in SSD_SERVE
 
         def kernel():
             return ssd(*args, chunk=chunk, return_state=True)
@@ -718,9 +816,9 @@ def phase_ssd_kernel(torch, np):
             f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); plan: "
             f"tile {pl.tile}, {pl.group} heads a CTA, grid {pl.grid}, "
             f"{pl.device_launches} device launches per call")
-        if case == SSD_MAIN:
-            main_row = row
-    return main_row
+        if case in (SSD_MAIN, SSD_ZAMBA):
+            rows["ssd_scan" + ("" if case == SSD_MAIN else "/zamba2")] = row
+    return rows
 
 
 def deltas(res, ref, bounds) -> dict:
@@ -756,13 +854,12 @@ def phase_fleet(torch, kernels):
 
     cfg = ExperimentConfig(**FLEET).with_engine("fleet", backend="torch")
     machine_s = cfg.n_machines * cfg.duration_s
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     res = run_experiment(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_launches(kernels)
     log(f"[fleet] torch/cuda via run_experiment (trace generation "
         f"included): {wall:.2f} s wall, {machine_s / wall:.1f} "
         f"machine-s/wall-s, launches {launches}")
@@ -887,11 +984,10 @@ def phase_event(torch, np, kernels, floor):
         raise AssertionError("the torch settler disagrees with numpy")
 
     # 3b. the whole cell with the torch settler on the card
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     cluster, t_wall = cluster_run({"backend": "torch", "device": "cuda"})
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_launches(kernels)
     on_card = collect(cluster, cfg)
     log(f"[event] torch/cuda settler: Cluster.run {t_wall:.3f} s "
         f"(numpy settler {run_wall:.3f} s), completed {on_card.completed}, "
@@ -955,13 +1051,12 @@ def aging_only(torch, kernels, path, expected, run):
     and read just after: the aging kernel must have launched `expected`
     times and no other kernel at all. Returns `run()`'s result and its
     wall, the device synchronised."""
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_launches(kernels)
     if launches["aging_update"] != expected or any(
             n for name, n in launches.items() if name != "aging_update"):
         raise AssertionError(f"{path}: launches {launches}, expected "
@@ -1255,14 +1350,13 @@ def phase_faults(torch, kernels, reqs):
     return by_path
 
 
-def phase_serve(torch, np, serve, kernels, expected, after=None):
-    """One serving cell (`SERVE`, `SERVE_MAMBA`, `SERVE_MOE` or
-    `SERVE_MLA`) on the card through the port's engine; then the kernel
-    path held against the plain path. `kernels`: the `CudaKernel` of every
-    kernel of the port; `expected(cfg, decode_iterations)`: the launches of
-    each of them that the path must make; `after(model, prompts, tokens,
-    tag)`, if given, runs after the cell, before the holds. Returns those
-    launches."""
+def serve_cell(torch, np, serve, kernels, expected):
+    """One serving cell (`SERVE`, `SERVE_MAMBA`, `SERVE_MOE`, `SERVE_MLA`
+    or `SERVE_VLM`) on the card through the port's engine. `kernels`: the
+    `CudaKernel` of every kernel of the port; `expected(cfg,
+    decode_iterations)`: the launches of each of them that the path must
+    make. Returns (the model, the prompts, the engine's tokens of each,
+    the launches, the cell's tag)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving.engine import InferenceEngine
@@ -1323,8 +1417,7 @@ def phase_serve(torch, np, serve, kernels, expected, after=None):
         return real_decode(*args)
 
     eng._prefill_fn, eng._decode_fn = timed_prefill, counted_decode
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     reqs = []
     for prompt in prompts:
@@ -1333,7 +1426,7 @@ def phase_serve(torch, np, serve, kernels, expected, after=None):
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_launches(kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     new = serve["requests"] * serve["new_tokens"]
     decode_tokens = new - serve["requests"]   # the first comes of prefill
@@ -1380,23 +1473,221 @@ def phase_serve(torch, np, serve, kernels, expected, after=None):
     # the hooks' closures hold the engine: freed here, not by a later
     # garbage collection, so that the next cell finds the card empty
     del eng, reqs, real_prefill, real_decode, hub
+    return model, prompts, tokens, launches, tag
+
+
+def phase_serve(torch, np, serve, kernels, expected, after=None):
+    """`serve_cell`; then `after(model, prompts, tokens, tag)`, if given;
+    then the two holds of the kernel path against the plain path on the
+    engine's tokens. Returns the cell's launches."""
+    model, prompts, tokens, launches, tag = serve_cell(
+        torch, np, serve, kernels, expected)
     if after is not None:
         after(model, prompts, tokens, tag)
     _hold_bf16(torch, model, prompts, tokens, tag)
+    cfg = model.cfg
     del model
     torch.cuda.empty_cache()
     _hold_f32(torch, cfg, prompts, tokens, tag)
     return launches
 
 
-def _teacher_forced(torch, model, prompt, tokens, use_kernel):
+def phase_vlm(torch, np, serve, kernels, expected):
+    """Phase 9: the vision-frontend model served text only (`serve_cell`:
+    the engine passes no embeddings, as the reference's does); then
+    PATCH_REQUESTS of its requests again, each behind 256 patch
+    embeddings (PATCH_SEED), through `Model.prefill` and
+    `Model.decode_step` (`_direct_run`), and the two holds on these.
+    Returns (the cell's launches, the patch run's)."""
+    model, prompts, _, served, tag = serve_cell(torch, np, serve, kernels,
+                                                expected)
+    tag = f"{tag} patches"
+    cfg = model.cfg
+    prompts = prompts[:PATCH_REQUESTS]
+    embeds = _frontend_embeds(torch, model, PATCH_REQUESTS, PATCH_SEED)
+    tokens, patches, steps = _direct_run(torch, model, serve, prompts,
+                                         kernels, tag, embeds)
+    _check_launches(tag, patches, {
+        "aging_update": 0, "ssd_scan": 0,
+        "flash_attention": cfg.num_layers * PATCH_REQUESTS,
+        "decode_attention": cfg.num_layers * steps})
+    _hold_bf16(torch, model, prompts, tokens, tag, embeds)
+    del model
+    torch.cuda.empty_cache()
+    _hold_f32(torch, cfg, prompts, tokens, tag, embeds)
+    return served, patches
+
+
+def _frontend_embeds(torch, model, n, seed):
+    """n sets of a frontend's embeddings (1, frontend_tokens, d_model),
+    float32, normal at the model's embedding table's std, drawn on the
+    card from `seed`."""
+    cfg = model.cfg
+    std = float(model.embed.float().std())
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn((1, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                        device="cuda") * std for _ in range(n)]
+
+
+def _stack_caches(torch, model, caches):
+    """Caches of single requests (batch 1, 0-d pos) as one cache of their
+    slots with a per-slot pos, each tensor stacked on the batch axis that
+    `Model.cache_batch_dim` gives for its key."""
+    def cat(key, vals):
+        if isinstance(vals[0], dict):
+            return {k: cat(key, [v[k] for v in vals]) for k in vals[0]}
+        return torch.cat(vals, dim=model.cache_batch_dim(key))
+
+    return {key: torch.stack([c[key] for c in caches]) if key == "pos"
+            else None if val is None else cat(key, [c[key] for c in caches])
+            for key, val in caches[0].items()}
+
+
+def _drive(torch, model, prompts, new_tokens, max_len, embeds=None):
+    """The port's model entry points, as a user of a family the engine
+    refuses calls them: each request's prompt (behind its `embeds`, if
+    given) through `Model.prefill`, one at a time; then DIRECT_BATCH
+    requests at a time through `Model.decode_step` with their caches
+    stacked and a per-slot pos, greedy, `new_tokens` each (the first from
+    the prefill). Returns (tokens of each request, prefill seconds,
+    decode seconds, decode steps), on a synchronised host clock."""
+    vocab = model.cfg.vocab_size
+    outs, prefill_s, decode_s, steps = [], 0.0, 0.0, 0
+    for lo in range(0, len(prompts), DIRECT_BATCH):
+        group = range(lo, min(lo + DIRECT_BATCH, len(prompts)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, first = [], []
+        for i in group:
+            logits, cache = model.prefill(
+                torch.tensor([prompts[i]], device="cuda"), max_len=max_len,
+                embeds=None if embeds is None else embeds[i])
+            caches.append(cache)
+            first.append(logits[0, -1, :vocab].argmax())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = _stack_caches(torch, model, caches)
+        del caches
+        tok = torch.stack(first)[:, None]
+        out = [tok]
+        for _ in range(new_tokens - 1):
+            logits, cache = model.decode_step(cache, tok)
+            tok = logits[:, 0, :vocab].argmax(-1, keepdim=True)
+            out.append(tok)
+            steps += 1
+        torch.cuda.synchronize()
+        prefill_s += t1 - t0
+        decode_s += time.perf_counter() - t1
+        outs.extend(torch.cat(out, dim=1).tolist())
+        del cache
+    return outs, prefill_s, decode_s, steps
+
+
+def _direct_run(torch, model, serve, prompts, kernels, tag, embeds=None):
+    """`_drive` on `prompts` with the launch counts set to 0 just before
+    and read just after; logs the run. Returns (tokens, launches, decode
+    steps)."""
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    tokens, prefill_s, decode_s, steps = _drive(
+        torch, model, prompts, serve["new_tokens"], serve["max_len"], embeds)
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    n = len(prompts)
+    new = n * serve["new_tokens"]
+    prompt_tokens = sum(len(p) for p in prompts)
+    front = ""
+    if embeds is not None:
+        front = f", {embeds[0].shape[1]} frontend embeddings each"
+    log(f"{tag} {n} requests through Model.prefill and Model.decode_step "
+        f"({DIRECT_BATCH} decoded at a time), prompts "
+        f"{sorted(len(p) for p in prompts)} tokens{front}, "
+        f"{serve['new_tokens']} new each: wall {wall:.3f} s ({new / wall:.1f}"
+        f" tok/s); prefill {prefill_s:.3f} s for {prompt_tokens} prompt "
+        f"tokens ({prompt_tokens / prefill_s:.1f} tok/s); decode "
+        f"{decode_s:.3f} s, {steps} steps ({decode_s / steps * 1e3:.2f} ms "
+        f"each); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    vocab = model.cfg.vocab_size
+    if any(len(t) != serve["new_tokens"] or not all(0 <= x < vocab
+                                                     for x in t)
+           for t in tokens):
+        raise AssertionError(f"{tag}: a request did not get its tokens")
+    return tokens, launches, steps
+
+
+def _check_launches(tag, launches, want):
+    log(f"{tag} launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{tag}: the path did not run through its "
+                             f"kernels as expected: {launches} != {want}")
+
+
+def _new_model(torch, serve, tag):
+    """`serve`'s architecture at full width on the card, from its seed;
+    logs its size."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(serve["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=serve["seed"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{tag} {cfg.family}: {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.is_encdec else ''}"
+        f", d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.resolved_head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB) initialised "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def phase_direct(torch, np, serve, kernels, expected, frame_seed=None):
+    """Phases 8 and 10: a family the engine refuses (the hybrid, the
+    encoder-decoder), driven through `Model.prefill` and
+    `Model.decode_step` with `serve`'s traffic (`_drive`), an
+    encoder-decoder's source as frame embeddings drawn from `frame_seed`;
+    then the two holds of the kernel path against the plain path, and an
+    encoder-decoder's `_hold_memory`.
+    `expected(cfg, steps)`: the launches the path must make. Returns
+    them."""
+    tag = f"[{serve['arch']}]"
+    model = _new_model(torch, serve, tag)
+    cfg = model.cfg
+    rng = np.random.default_rng(serve["seed"])
+    lo, hi = serve["prompt_lens"]
+    lens = rng.integers(lo, hi + 1, serve["requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    embeds = None if frame_seed is None else _frontend_embeds(
+        torch, model, serve["requests"], frame_seed)
+    # warm-up: cuBLAS handles, allocator pools
+    _drive(torch, model, prompts[:1], 2, serve["max_len"],
+           None if embeds is None else embeds[:1])
+    tokens, launches, steps = _direct_run(torch, model, serve, prompts,
+                                          kernels, tag, embeds)
+    _check_launches(tag, launches, expected(cfg, steps))
+    _hold_bf16(torch, model, prompts, tokens, tag, embeds)
+    if cfg.is_encdec:
+        _hold_memory(torch, model, prompts, embeds, tag)
+    del model
+    torch.cuda.empty_cache()
+    _hold_f32(torch, cfg, prompts, tokens, tag, embeds)
+    return launches
+
+
+def _teacher_forced(torch, model, prompt, tokens, use_kernel, embeds=None):
     """The model's logits (vocab only, float32) at every step of one
-    request: its prompt through `prefill`, then the engine's tokens one by
-    one through `decode_step`."""
+    request: its prompt (behind its frontend's `embeds`, if given)
+    through `prefill`, then the engine's tokens one by one through
+    `decode_step`."""
     vocab = model.cfg.vocab_size
     toks = torch.tensor([prompt], device="cuda")
-    logits, cache = model.prefill(toks, max_len=len(prompt) + len(tokens),
-                                  use_kernel=use_kernel)
+    front = embeds.shape[1] if embeds is not None \
+        and model.cfg.family == "vlm" else 0
+    logits, cache = model.prefill(
+        toks, max_len=front + len(prompt) + len(tokens), embeds=embeds,
+        use_kernel=use_kernel)
     steps = [logits[0, -1, :vocab].float()]
     for tok in tokens[:-1]:
         logits, cache = model.decode_step(
@@ -1452,29 +1743,39 @@ class _Routes:
         self.moe._route = self.real
 
 
-def _routed(torch, model, prompt, tokens, use_kernel, replay=None):
+def _routed(torch, model, prompt, tokens, use_kernel, replay=None,
+            embeds=None):
     """`_teacher_forced` under `_Routes`: (logits, the routes taken)."""
     with _Routes(torch, replay) as routes:
-        out = _teacher_forced(torch, model, prompt, tokens, use_kernel)
+        out = _teacher_forced(torch, model, prompt, tokens, use_kernel,
+                              embeds)
     return out, routes.calls
 
 
-def _hold_bf16(torch, model, prompts, tokens, tag):
+def _hold_bf16(torch, model, prompts, tokens, tag, embeds=None):
     """bfloat16: kernel path vs plain path, against the noise floor. For
     MoE the kernel path and the noisy plain path replay the plain path's
     routes (`_Routes`), so both distances measure numerics: top-k routing
     is discontinuous, and a near-tie that bfloat16 rounding decides either
     way moves a token to another expert whatever its cause. The top-k the
-    kernel path would take on those routes is counted against them."""
+    kernel path would take on those routes is counted against them.
+    `embeds`: each request's frontend embeddings (patches or frames), or
+    None; the noisy path perturbs them as it does the embedding table.
+    For an encoder-decoder, whose 24 bidirectional layers amplify that
+    to a floor near a quarter of the logits' norm, the floor of the
+    token table alone is measured and printed beside it; it is not held,
+    since it leaves out the encoder, whose path `_hold_memory` holds
+    against a floor of its own."""
     t0 = time.perf_counter()
     moe_model = bool(model.cfg.num_experts)
     kernel_d, noise_d, max_err, flips, steps = 0.0, 0.0, 0.0, 0, 0
     routes, route_flips = 0, 0
     plains, plain_routes = [], []
-    for prompt, toks in zip(prompts, tokens):
-        p, taken = _routed(torch, model, prompt, toks, False)
+    embeds = embeds or [None] * len(prompts)
+    for prompt, toks, emb in zip(prompts, tokens, embeds):
+        p, taken = _routed(torch, model, prompt, toks, False, embeds=emb)
         k, own = _routed(torch, model, prompt, toks, True,
-                         replay=taken if moe_model else None)
+                         replay=taken if moe_model else None, embeds=emb)
         if moe_model:
             r, f, _ = _route_flips(torch, own, taken, model.cfg.num_layers)
             routes, route_flips = routes + r, route_flips + f
@@ -1485,20 +1786,37 @@ def _hold_bf16(torch, model, prompts, tokens, tag):
         steps += len(toks)
         plains.append(p)
         plain_routes.append(taken if moe_model else None)
-    table = model.embed.data
-    noise = torch.randn(table.shape, generator=torch.Generator(
-        "cuda").manual_seed(1), device="cuda")
-    model.embed.data = (table.float() * (1 + NOISE_REL * noise)).to(
-        table.dtype)
-    del noise
-    try:
-        for prompt, toks, p, taken in zip(prompts, tokens, plains,
-                                          plain_routes):
-            noisy, _ = _routed(torch, model, prompt, toks, False,
-                               replay=taken)
-            noise_d = max(noise_d, _rel_l2(noisy, p))
-    finally:
-        model.embed.data = table
+
+    def floor(frontend):
+        """The noisy plain path's distance from the plain path: the
+        embedding table perturbed (seed 1), and the frontend's
+        embeddings too (seed 2) if `frontend`."""
+        table = model.embed.data
+        noise = torch.randn(table.shape, generator=torch.Generator(
+            "cuda").manual_seed(1), device="cuda")
+        model.embed.data = (table.float() * (1 + NOISE_REL * noise)).to(
+            table.dtype)
+        del noise
+        gen = torch.Generator("cuda").manual_seed(2)
+        dist = 0.0
+        try:
+            for prompt, toks, p, taken, emb in zip(prompts, tokens, plains,
+                                                   plain_routes, embeds):
+                if emb is not None and frontend:
+                    emb = emb * (1 + NOISE_REL * torch.randn(
+                        emb.shape, generator=gen, device="cuda"))
+                noisy, _ = _routed(torch, model, prompt, toks, False,
+                                   replay=taken, embeds=emb)
+                dist = max(dist, _rel_l2(noisy, p))
+        finally:
+            model.embed.data = table
+        return dist
+
+    noise_d = floor(True)
+    table_only = ""
+    if model.cfg.is_encdec:
+        table_only = (f"; token table alone, not held: "
+                      f"{floor(False):.4e}")
     pinned = ""
     if moe_model:
         pinned = (f" (MoE: both on the plain path's routes; there the "
@@ -1506,13 +1824,51 @@ def _hold_bf16(torch, model, prompts, tokens, tag):
                   f"of {routes} (token, layer), {route_flips / routes:.3e})")
     log(f"{tag} bfloat16, kernel vs plain path on the engine's tokens: "
         f"{steps} steps, max |logit diff| {max_err:.4f}, max relative L2 "
-        f"{kernel_d:.4e}; noise floor (plain path, embeddings perturbed by "
-        f"{NOISE_REL:.3g} relative) {noise_d:.4e}{pinned}; plain greedy "
-        f"tokens that differ from the engine's: {flips}/{steps} "
+        f"{kernel_d:.4e}; noise floor (plain path, embeddings"
+        f"{'' if embeds[0] is None else ' and frontend inputs'} perturbed by "
+        f"{NOISE_REL:.3g} relative) {noise_d:.4e}{table_only}{pinned}; "
+        f"plain greedy tokens that differ from the engine's: {flips}/{steps} "
         f"({time.perf_counter() - t0:.1f} s)")
     if not kernel_d <= noise_d:
         raise AssertionError(f"kernel path leaves the bfloat16 noise floor: "
                              f"{kernel_d:.4e} > {noise_d:.4e}")
+
+
+def _hold_memory(torch, model, prompts, embeds, tag):
+    """bfloat16, an encoder-decoder: the encoder's memory as the
+    cross-attention cache that `Model.prefill` leaves (every layer's xk
+    and xv), kernel path vs plain path, per request as a relative L2
+    distance, against a noise floor of its own: the plain path's memory
+    with each request's frames perturbed by relative Gaussian noise of
+    NOISE_REL (seed 2). Both are maxima over the requests."""
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(2)
+
+    def memory(prompt, emb, use_kernel):
+        _, cache = model.prefill(torch.tensor([prompt], device="cuda"),
+                                 embeds=emb, use_kernel=use_kernel)
+        return torch.cat([cache["xk"].flatten(),
+                          cache["xv"].flatten()]).float()
+
+    def dist(a, b):
+        return float((a - b).norm() / b.norm())
+
+    kernel_d, noise_d = 0.0, 0.0
+    for prompt, emb in zip(prompts, embeds):
+        p = memory(prompt, emb, False)
+        kernel_d = max(kernel_d, dist(memory(prompt, emb, True), p))
+        noisy = emb * (1 + NOISE_REL * torch.randn(emb.shape, generator=gen,
+                                                   device="cuda"))
+        noise_d = max(noise_d, dist(memory(prompt, noisy, False), p))
+        del p
+    log(f"{tag} bfloat16, the encoder's memory (xk, xv of "
+        f"{model.cfg.num_layers} layers), kernel vs plain path: "
+        f"{len(prompts)} requests, max relative L2 {kernel_d:.4e}; noise "
+        f"floor (plain path, frames perturbed by {NOISE_REL:.3g} relative) "
+        f"{noise_d:.4e} ({time.perf_counter() - t0:.1f} s)")
+    if not kernel_d <= noise_d:
+        raise AssertionError(f"the encoder's memory leaves the bfloat16 "
+                             f"noise floor: {kernel_d:.4e} > {noise_d:.4e}")
 
 
 def _route_flips(torch, kernel_calls, plain_calls, n_layers):
@@ -1533,9 +1889,10 @@ def _route_flips(torch, kernel_calls, plain_calls, n_layers):
     return routes, flips, per_step
 
 
-def _hold_f32(torch, cfg, prompts, tokens, tag):
+def _hold_f32(torch, cfg, prompts, tokens, tag, embeds=None):
     """float32 at full width: kernel path vs plain path, tight; for MoE
-    on the steps whose routes agree (see F32_RTOL)."""
+    on the steps whose routes agree (see F32_RTOL). `embeds`: each
+    request's frontend embeddings, or None."""
     import dataclasses
 
     from repro_torch.models import Model
@@ -1544,9 +1901,11 @@ def _hold_f32(torch, cfg, prompts, tokens, tag):
                   seed=1)
     worst, max_err, steps, held = -math.inf, 0.0, 0, 0
     routes, flips, flip_steps, unheld_err = 0, 0, 0, 0.0
-    for prompt, toks in list(zip(prompts, tokens))[:F32_REQUESTS]:
-        k, on_kernel = _routed(torch, model, prompt, toks, True)
-        p, on_plain = _routed(torch, model, prompt, toks, False)
+    embeds = embeds or [None] * len(prompts)
+    for prompt, toks, emb in list(zip(prompts, tokens,
+                                      embeds))[:F32_REQUESTS]:
+        k, on_kernel = _routed(torch, model, prompt, toks, True, embeds=emb)
+        p, on_plain = _routed(torch, model, prompt, toks, False, embeds=emb)
         diff = (k - p).abs()
         margin = (diff - F32_ATOL - F32_RTOL * p.abs()).amax(-1)
         agree = torch.ones(len(toks), dtype=torch.bool, device=k.device)
@@ -1605,8 +1964,7 @@ def absorbed_run(torch, kernels, serve):
                 model, max_batch=serve["max_batch"],
                 max_len=serve["max_len"], policy=serve["policy"],
                 num_host_cores=serve["host_cores"])
-            for k in kernels:
-                k.launches = 0
+            zero_launches(kernels)
             t0 = time.perf_counter()
             reqs = []
             for prompt in prompts:
@@ -1615,7 +1973,7 @@ def absorbed_run(torch, kernels, serve):
             eng.run_until_drained()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {k.name: k.launches for k in kernels}
+            launches = read_launches(kernels)
             del eng
         finally:
             model.cfg = cfg
@@ -1669,7 +2027,7 @@ def main() -> int:
     phase_environment(torch, (*every, floor))
     aging_row = phase_aging_kernel(torch, np, DEFAULT_PARAMS, floor)
     attention_rows = phase_attention_kernels(torch, np)
-    ssd_row = phase_ssd_kernel(torch, np)
+    ssd_rows = phase_ssd_kernel(torch, np)
     launches, reqs, fleet_res, fleet_wall = phase_fleet(torch, (AGING,))
     event, event_res, event_card = phase_event(torch, np, every, floor)
     by_path = {"fleet-200x1h": launches["aging_update"],
@@ -1695,10 +2053,39 @@ def main() -> int:
         served = phase_serve(torch, np, serve, every, dense, after)
         for name, paths in attention_by_path.items():
             paths[f"serve-{serve['arch']}"] = served[name]
+    served = phase_serve(torch, np, SERVE_MAMBA, every, ssm)
+    ssd_by_path = {"serve-mamba2-2.7b": served["ssd_scan"]}
+
+    def hybrid(cfg, steps):
+        uses = cfg.num_hybrid_groups
+        return {"aging_update": 0,
+                "ssd_scan": cfg.num_layers * SERVE_HYBRID["requests"],
+                "flash_attention": uses * SERVE_HYBRID["requests"],
+                "decode_attention": uses * steps}
+
+    def encdec(cfg, steps):
+        return {"aging_update": 0, "ssd_scan": 0,
+                "flash_attention": (cfg.encoder_layers + cfg.num_layers)
+                * SERVE_ENCDEC["requests"],
+                "flash_attention/noncausal": cfg.encoder_layers
+                * SERVE_ENCDEC["requests"],
+                "decode_attention": cfg.num_layers * steps}
+    served = phase_direct(torch, np, SERVE_HYBRID, every, hybrid)
+    ssd_by_path["zamba2-7b"] = served["ssd_scan"]
+    for name, paths in attention_by_path.items():
+        paths["zamba2-7b"] = served[name]
+    served, patches = phase_vlm(torch, np, SERVE_VLM, every, dense)
+    for name, paths in attention_by_path.items():
+        paths["serve-internvl2-2b"] = served[name]
+        paths["internvl2-2b-patches"] = patches[name]
+    served = phase_direct(torch, np, SERVE_ENCDEC, every, encdec,
+                          frame_seed=FRAME_SEED)
+    bidirectional = served["flash_attention/noncausal"]
+    for name, paths in attention_by_path.items():
+        paths["seamless-m4t-large-v2"] = served[name]
     for name, paths in attention_by_path.items():
         launches[name] = sum(paths.values())
-    served = phase_serve(torch, np, SERVE_MAMBA, every, ssm)
-    launches["ssd_scan"] = served["ssd_scan"]
+    launches["ssd_scan"] = sum(ssd_by_path.values())
     src_dir = "src/repro_torch/kernels"
     kernels = [
         dict({"name": "aging_update", "route": "cuda",
@@ -1715,7 +2102,13 @@ def main() -> int:
               "launches_by_path": attention_by_path["flash_attention"],
               "mla": dict(attention_rows["flash_attention/mla"],
                           launches=attention_by_path["flash_attention"][
-                              "serve-minicpm3-4b"])},
+                              "serve-minicpm3-4b"]),
+              "zamba2": dict(attention_rows["flash_attention/zamba2"],
+                             launches=attention_by_path["flash_attention"][
+                                 "zamba2-7b"]),
+              # the seamless path's noncausal launches, counted apart
+              "encoder": dict(attention_rows["flash_attention/encoder"],
+                              launches=bidirectional)},
              **attention_rows["flash_attention"]),
         dict({"name": "decode_attention", "route": "cuda",
               "source": f"{src_dir}/decode_attention/decode_attention.cu",
@@ -1725,12 +2118,19 @@ def main() -> int:
               "launches_by_path": attention_by_path["decode_attention"],
               "mla": dict(attention_rows["decode_attention/mla"],
                           launches=attention_by_path["decode_attention"][
-                              "serve-minicpm3-4b"])},
+                              "serve-minicpm3-4b"]),
+              "zamba2": dict(attention_rows["decode_attention/zamba2"],
+                             launches=attention_by_path["decode_attention"][
+                                 "zamba2-7b"])},
              **attention_rows["decode_attention"]),
         dict({"name": "ssd_scan", "route": "cuda",
               "source": f"{src_dir}/ssd_scan/ssd_scan.cu",
               "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:64",
-              "launches": launches["ssd_scan"]}, **ssd_row),
+              "launches": launches["ssd_scan"],
+              "launches_by_path": ssd_by_path,
+              "zamba2": dict(ssd_rows["ssd_scan/zamba2"],
+                             launches=ssd_by_path["zamba2-7b"])},
+             **ssd_rows["ssd_scan"]),
     ]
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

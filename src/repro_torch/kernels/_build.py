@@ -11,6 +11,7 @@ and happens only when a kernel is first launched, never at import.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -48,7 +49,9 @@ class CudaKernel:
 
     `launches` is a plain integer that the kernel's wrapper raises by one
     at each launch and nowhere else, so a run can show that it went
-    through the kernel.
+    through the kernel. `variant_launches` counts, by name, the launches
+    of a variant among them where the wrapper tells its variants apart
+    (flash_attention's "noncausal").
     """
 
     def __init__(self, name: str, source: Path, entry: str, argtypes,
@@ -59,6 +62,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.flags = tuple(flags)
         self.launches = 0
+        self.variant_launches = collections.Counter()
         self.build_log = ""
         self._fn = None
 

@@ -17,11 +17,13 @@
 // serving shape (4 sequences, 32 heads over 8, a 1,536-row cache, pos
 // drawn in [1, 1536], bf16) that is 6.8 MB: 2.044 us at 3.35 TB/s. The
 // work per call is tiny, so what the design fights is latency. Instances:
-// q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128, 128), and
-// MLA's (96, 64): each lane holds D / 32 elements of q and k rows and Dv /
-// 32 of v rows and of the accumulator. MLA's 40 heads over 40 cache heads
-// (a group of 1) run in the kG = 4 instance, three of its four head lanes
-// idle.
+// q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128, 128),
+// MLA's (96, 64) and Zamba2's (112, 112): each lane holds ceil(D / 32)
+// elements of q and k rows and ceil(Dv / 32) of v rows and of the
+// accumulator; at 112, 4 each in lanes 0 to 27, and lanes 28 to 31 hold
+// none (zeros in q, no load, no store). MLA's 40 heads over 40 cache heads
+// and Zamba2's 32 over 32 (a group of 1) run in the kG = 4 instance, three
+// of its four head lanes idle.
 //
 // Design: the Pallas kernel walks the cache of one sequence in one grid
 // row; at batch 4 that would be 4 CTAs on 132 SMs. Here the grid is
@@ -31,8 +33,9 @@
 // A CTA of 4 warps streams its slice in tiles of 32 keys through a ring of
 // 4 stages in shared memory, by 16-byte cp.async copies in the cache's own
 // dtype (rows past the slice are zero-filled), so the copies of the next
-// three tiles run under the current tile's math. Warps take keys (8 of
-// each tile), lanes split D: each lane holds D / 32 elements of q for all
+// three tiles run under the current tile's math (a row of 112 bf16 values
+// is 14 copies of 16 bytes). Warps take keys (8 of each tile), lanes split
+// D: each lane holds ceil(D / 32) elements of q for all
 // G heads of the group in registers, pre-scaled by scale * log2(e). A
 // step scores 32 (key, head) pairs (8 keys at G <= 4, 4 at G <= 8, 2 at
 // G <= 16): each
@@ -200,8 +203,12 @@ __global__ void __launch_bounds__(kThreads)
                             Strides st, int n_heads, int n_kv_heads,
                             int max_len, int window, int n_split,
                             float scale_log2) {
-  constexpr int E = DQK / 32;            // elements of a q or k row per lane
-  constexpr int EV = DV / 32;            // elements of a v or o row per lane
+  // elements of a q or k row, and of a v or o row, per lane; lanes past
+  // the row (at 112: lanes 28 to 31) hold none
+  constexpr int E = (DQK + 31) / 32;
+  constexpr int EV = (DV + 31) / 32;
+  static_assert(DQK % E == 0 && DV % EV == 0,
+                "a lane holds a whole share of the row or none");
   // keys scored at once: one (key, head) score per lane
   constexpr int kSub = 32 / kG;
   static_assert(kSub * kG == 32 && kWarpKeys % kSub == 0,
@@ -216,6 +223,8 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int groups = n_heads / n_kv_heads;
+  const bool k_lane = lane * E < DQK;    // this lane holds q and k elements
+  const bool v_lane = lane * EV < DV;    // and v and o elements
 
   // this CTA's slice [s_lo, s_hi) of the visible range [lo, hi)
   const int p = pos[b];
@@ -240,7 +249,7 @@ __global__ void __launch_bounds__(kThreads)
   float qr[kG][E];
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
-    if (g < groups) {
+    if (g < groups && k_lane) {
       load_vec<E>(q + b * st.q_b + (hk * groups + g) * st.q_h + lane * E,
                   qr[g]);
 #pragma unroll
@@ -277,8 +286,8 @@ __global__ void __launch_bounds__(kThreads)
       float v[32];                           // v[j * kG + g]: partial dots
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        float kv[E];
-        load_vec<E>(kd + (r0 + j) * DQK + lane * E, kv);
+        float kv[E] = {};
+        if (k_lane) load_vec<E>(kd + (r0 + j) * DQK + lane * E, kv);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
           float x = 0.0f;
@@ -311,8 +320,8 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
-        float vv[EV];
-        load_vec<EV>(vd + (r0 + j) * DV + lane * EV, vv);
+        float vv[EV] = {};
+        if (v_lane) load_vec<EV>(vd + (r0 + j) * DV + lane * EV, vv);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
           const float pj = __shfl_sync(0xffffffffu, p, j * kG + g);
@@ -334,7 +343,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int g = 0; g < kG; ++g)
-    if (g < groups)
+    if (g < groups && v_lane)
 #pragma unroll
       for (int e = 0; e < EV; ++e)
         wacc[(warp * kG + g) * DV + lane * EV + e] = acc[g][e];
@@ -451,9 +460,9 @@ cudaError_t launch_typed(const Buffers& x, const Strides& st,
   return cudaGetLastError();
 }
 
-// kG: the query heads per cache head rounded up to 4, 8 or 16. MLA's
-// group of 1 (40 heads over 40) takes kG = 4, with 3 of every 4 (key,
-// head) lanes of a step idle.
+// kG: the query heads per cache head rounded up to 4, 8 or 16. A group of
+// 1 (MLA's 40 heads over 40, Zamba2's 32 over 32) takes kG = 4, with 3 of
+// every 4 (key, head) lanes of a step idle.
 template <typename T, int DQK, int DV>
 cudaError_t launch_groups(const Buffers& x, const Strides& st,
                           const Shape& sh, cudaStream_t stream) {
@@ -463,8 +472,9 @@ cudaError_t launch_groups(const Buffers& x, const Strides& st,
   return launch_typed<T, DQK, DV, kMaxGroups>(x, st, sh, stream);
 }
 
-// The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128, 128)
-// and MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64).
+// The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128, 128),
+// MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and Zamba2's
+// (112, 112).
 template <typename T>
 cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
                        const Strides& st, const Shape& sh,
@@ -477,6 +487,8 @@ cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
     return launch_groups<T, 128, 128>(x, st, sh, stream);
   if (head_dim == 96 && v_head_dim == 64)
     return launch_groups<T, 96, 64>(x, st, sh, stream);
+  if (head_dim == 112 && v_head_dim == 112)
+    return launch_groups<T, 112, 112>(x, st, sh, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -6,8 +6,8 @@ On CUDA tensors it launches the hand-written split-KV kernel
 current stream; on CPU tensors, or with `use_kernel=False`, it runs the
 plain PyTorch version (`ref.py`). There is no other fallback: any other
 device, dtype, pair of head dims or layout raises; the instances are B2's
-(`flash_attention.ops.HEAD_DIMS`: equal q/k and v head dims of 32, 64 or
-128, and MLA's 96 with 64). `pos` stays on the device:
+(`flash_attention.ops.HEAD_DIMS`: equal q/k and v head dims of 32, 64,
+128 or Zamba2's 112, and MLA's 96 with 64). `pos` stays on the device:
 nothing on the path reads it back to the host.
 
 The kernel's last CTA of each (sequence, cache head) merges the slices; it

@@ -20,8 +20,8 @@
 // changes the result on rows that see at least one key.
 //
 // Instances: q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128,
-// 128), and MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32; v 64): the
-// scores take D, the values and the output Dv.
+// 128), MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32; v 64) and
+// Zamba2's (112, 112): the scores take D, the values and the output Dv.
 //
 // Bound: operations at Llama-3-8B's serving shape (1, 32 heads over 8, S =
 // 1,024, head_dim 128, causal): the work is 2 * (D + Dv) per (query,
@@ -29,7 +29,9 @@
 // the bf16 tensor cores (989 TFLOP/s) against 5.0 us of bytes. Bytes at
 // MiniCPM3's (1, 40 heads over 40, S = 1,024, 96 / 64, causal): 26.2 MB,
 // 7.82 us at 3.35 TB/s, against 6.72 GFLOP, 6.79 us (no grouped heads
-// share a K or V tile there).
+// share a K or V tile there). Bytes at Zamba2's shared block (1, 32 heads
+// over 32, S = 1,024, 112, causal): 29.4 MB, 8.77 us, against 7.5 GFLOP,
+// 7.6 us.
 //
 // Two kernels, chosen by dtype:
 //
@@ -40,9 +42,12 @@
 // thread copies the Q tile once and each 64-key tile of K and V by TMA,
 // from the strided (B, S, H, D) tensors through tensor maps built on the
 // host per call, into a ring of three stages with the hardware's 128-byte
-// swizzle where it divides a row, else 64-byte (head dims 32 and 96: boxes
-// of 32 columns, three side by side at 96); V has a tile of its own width;
-// rows past S arrive as zeros. A stage's
+// swizzle where it divides a row, else 64-byte where that does (head dims
+// 32 and 96: boxes of 32 columns, three side by side at 96), else 128-byte
+// over a tile wider than the row (head dim 112: two boxes of 64 columns,
+// of which TMA fills columns 112 to 127 with zeros, out of the tensor's
+// range, and counts them in the bytes it delivers); V has a tile of its
+// own width; rows past S arrive as zeros. A stage's
 // `full` mbarrier counts the bytes of its copies, its `empty` mbarrier the
 // 256 consumer threads done with it; the producer refills a stage as soon
 // as it is empty, so copies run up to three tiles ahead of the products
@@ -53,7 +58,9 @@
 // special-function unit with the scale folded into one FMA, the sum kept
 // per thread and reduced once at the end); P rounded to bf16 in the
 // registers that held S, which is the A operand of O += P V by 4
-// register-A wgmma (m64nDvk16, V MN-major in shared memory). The products
+// register-A wgmma (m64nNk16 over the V tile's N columns, V MN-major in
+// shared memory: at 112 the products of 128, whose last 16 columns of V
+// are zeros and of O are never written). The products
 // of one tile overlap the softmax of the next: S of tile t is started
 // before P V of tile t - 1, and the softmax of tile t runs while P V of
 // tile t - 1 is on the tensor cores. O stays in float32 registers and is
@@ -63,8 +70,8 @@
 // SDPA round it; the Pallas kernel keeps it in float32. A row that sees no
 // key at all gives 0 (the Pallas kernel: the mean of the values it
 // covered); no caller asks for one. Shared memory at D = 128: Q 32 KB + 3
-// x (K 16 KB + V 16 KB), one CTA per SM (about 160 registers a thread); at
-// (96, 64): Q 24 KB + 3 x (K 12 KB + V 8 KB).
+// x (K 16 KB + V 16 KB), one CTA per SM (about 160 registers a thread),
+// and the same at 112; at (96, 64): Q 24 KB + 3 x (K 12 KB + V 8 KB).
 //
 // float32 (`flash_attention_kernel`): the CUDA cores, unchanged since its
 // first version. TF32 or bf16 products cannot meet the reference's float32
@@ -266,7 +273,8 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 }
 
 // The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128,
-// 128) and MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64).
+// 128), MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and
+// Zamba2's (112, 112).
 template <typename T>
 cudaError_t launch_dim(int head_dim, int v_head_dim, const void* q,
                        const void* k, const void* v, void* o,
@@ -283,6 +291,7 @@ cudaError_t launch_dim(int head_dim, int v_head_dim, const void* q,
   FA_CASE(64, 64)
   FA_CASE(128, 128)
   FA_CASE(96, 64)
+  FA_CASE(112, 112)
 #undef FA_CASE
   return cudaErrorInvalidValue;
 }
@@ -297,16 +306,23 @@ constexpr int kStages = 3;       // K / V ring
 
 // The shared-memory layout of a tile whose rows are D bf16 values: boxes
 // of kBoxCols columns (one swizzle row of kSwizzle bytes) by the tile's
-// rows, D / kBoxCols boxes side by side. The swizzle row is 128 bytes where
-// it divides the row, else 64 (D = 32 and D = 96: 2 and 3 boxes of 32).
+// rows, kBoxes boxes side by side, kCols columns in all. The swizzle row is
+// 128 bytes where it divides the row, the whole row where that is shorter,
+// else 64 where that divides it (D = 32 and D = 96: 2 and 3 boxes of 32),
+// else 128 over kCols > D columns (D = 112: two boxes of 64, the last
+// holding 48 columns of the tensor and 16 that TMA fills with zeros).
 template <int D>
 struct TcRows {
   static constexpr int kSwizzle =
-      D * 2 % 128 == 0 ? 128 : (D * 2 < 128 ? D * 2 : 64);
+      D * 2 % 128 == 0 ? 128
+                       : (D * 2 < 128 ? D * 2 : (D * 2 % 64 == 0 ? 64 : 128));
   static constexpr int kBoxCols = kSwizzle / 2;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
+  static constexpr int kCols = kBoxes * kBoxCols;
   static constexpr int kAtom = 8 * kSwizzle;       // 8 swizzled rows
-  static_assert(kBoxes * kBoxCols == D, "D is a multiple of the box");
+  static_assert(D % 16 == 0 && kCols - D < kBoxCols,
+                "D is a multiple of a product's 16 and fills its last box "
+                "in part at most");
 };
 
 // Shared-memory geometry of one CTA: Q and K tiles of DQK columns, V tiles
@@ -329,8 +345,9 @@ struct TcTile {
       1024 + kQBytes + kStages * (kKBytes + kVBytes) + 64;
 };
 
-// O (m64nD) += P (64 x 16 keys, bf16 in registers) * V (16 keys x D).
-template <int D>
+// O (m64nN) += P (64 x 16 keys, bf16 in registers) * V (16 keys x N), N
+// the V tile's columns (TcRows::kCols).
+template <int N>
 __device__ __forceinline__ void pv_step(float* o, const uint32_t* p,
                                         uint64_t v_desc);
 template <>
@@ -350,7 +367,8 @@ __device__ __forceinline__ void pv_step<128>(float* o, const uint32_t* p,
 }
 
 // Starts (and commits, without waiting) S = Q K^T for warpgroup `wg`'s 64
-// rows against the key tile `k_tile`: DQK / 16 products, K-major operands.
+// rows against the key tile `k_tile`: DQK / 16 products, K-major operands
+// (at 112 the tile's zero columns 112 to 127 take no product).
 template <int DQK, int DV>
 __device__ __forceinline__ void qk_mma(float (&sc)[kTcBK / 2],
                                        const uint8_t* qs,
@@ -375,9 +393,11 @@ __device__ __forceinline__ void qk_mma(float (&sc)[kTcBK / 2],
 }
 
 // Starts (and commits, without waiting) O += P V for the value tile
-// `v_tile`: kTcBK / 16 products, P from registers, V MN-major.
+// `v_tile`: kTcBK / 16 products, P from registers, V MN-major, O over the
+// tile's kCols columns.
 template <int DQK, int DV>
-__device__ __forceinline__ void pv_mma(float (&o)[DV / 2],
+__device__ __forceinline__ void pv_mma(
+    float (&o)[TcTile<DQK, DV>::V::kCols / 2],
                                        const uint32_t (&pa)[kTcBK / 16][4],
                                        const uint8_t* v_tile) {
   using G = TcTile<DQK, DV>;
@@ -386,7 +406,7 @@ __device__ __forceinline__ void pv_mma(float (&o)[DV / 2],
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTcBK / 16; ++kk)
-    pv_step<DV>(o, pa[kk],
+    pv_step<R::kCols>(o, pa[kk],
                 hopper::make_desc(v_tile + kk * 16 * R::kSwizzle, G::kVBox,
                                   R::kAtom, R::kSwizzle));
   hopper::wgmma_commit();
@@ -555,9 +575,10 @@ __global__ void __launch_bounds__(kTcThreads)
   const int p_last = min(q0 + wg * 64 + 63, q_len - 1) + q_offset;
 
   constexpr int kS = kTcBK / 2;  // score registers per thread
-  float acc[DV / 2];
+  constexpr int kVCols = G::V::kCols;  // O's columns in the products
+  float acc[kVCols / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kVCols / 2; ++i) acc[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
 
@@ -614,7 +635,7 @@ __global__ void __launch_bounds__(kTcThreads)
       hopper::fence_operands(acc);
       hopper::mbar_arrive(&empty[prev]);
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j)
+      for (int j = 0; j < kVCols / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           acc[4 * j + 2 * i] *= alpha[i];
@@ -640,6 +661,7 @@ __global__ void __launch_bounds__(kTcThreads)
     if (row < q_rows) {
       const float inv = 1.0f / fmaxf(l[i], 1e-30f);
       __nv_bfloat16* orow = o + b * so.b + h * so.h + (q0 + row) * so.s;
+      // the tensor's DV columns only: at 112 the next head's follow
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
@@ -700,6 +722,7 @@ cudaError_t launch_tc_dim(int head_dim, int v_head_dim, const void* q,
   FA_TC_CASE(64, 64)
   FA_TC_CASE(128, 128)
   FA_TC_CASE(96, 64)
+  FA_TC_CASE(112, 112)
 #undef FA_TC_CASE
   return cudaErrorInvalidValue;
 }

@@ -5,8 +5,8 @@ On CUDA tensors it launches the hand-written kernel
 (`flash_attention.cu`) on the current stream; on CPU tensors, or with
 `use_kernel=False`, it runs the plain PyTorch version (`ref.py`). There is
 no other fallback: any other device, dtype, pair of head dims or layout
-raises. The instances take a q/k head dim equal to v's (32, 64, 128) and
-MLA's 96 with a v head dim of 64 (`HEAD_DIMS`).
+raises. The instances take a q/k head dim equal to v's (32, 64, 128 and
+Zamba2's 112) and MLA's 96 with a v head dim of 64 (`HEAD_DIMS`).
 The C entry point holds two kernels and picks one by dtype: bfloat16 runs
 on the tensor cores (wgmma, with Q, K and V copied by TMA through tensor
 maps that this wrapper describes per call, `tensor_map_geometry`);
@@ -35,8 +35,8 @@ KERNEL = CudaKernel(
      _I, ctypes.c_float, _P])
 
 #: (q/k head dim, v head dim) of the kernels' instances (and of B3's):
-#: equal dims, and MLA's 96 / 64 (MiniCPM3)
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64))
+#: equal dims, MLA's 96 / 64 (MiniCPM3) and Zamba2's 112
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64), (112, 112))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of the bfloat16 kernel's query tile and key tile (kTcBQ, kTcBK)
 BLOCK_Q, BLOCK_KV = 128, 64
@@ -48,11 +48,14 @@ def tensor_map_geometry(t: torch.Tensor, rows: int) -> tuple[int, ...]:
     innermost first (D, H, S, B) in elements; the byte strides of H, S
     and B; the box (columns, 1, rows, 1), whose columns span one swizzle
     row: 128 bytes where that divides the row, the whole row where it is
-    shorter, else 64 bytes (MLA's q and k rows of 96 bf16 values: three
-    boxes of 32 columns). Each tensor gets its own D, so v's may differ
-    from q's. A dim of size 1 gets the stride it would have in a packed
-    tensor: its coordinate is always 0, and the tensor map wants 16-byte
-    multiples."""
+    shorter, else 64 bytes where that divides it (MLA's q and k rows of
+    96 bf16 values: three boxes of 32 columns), else 128 bytes over boxes
+    that reach past the row (Zamba2's rows of 112: two boxes of 64
+    columns, the tensor map's D staying 112, so that TMA fills columns
+    112 to 127 of the tile with zeros). Each tensor gets its own D, so
+    v's may differ from q's. A dim of size 1 gets the stride it would
+    have in a packed tensor: its coordinate is always 0, and the tensor
+    map wants 16-byte multiples."""
     b, s, h, d = t.shape
     size = t.element_size()
     strides = [t.stride(2) * size, t.stride(1) * size, t.stride(0) * size]
@@ -62,7 +65,8 @@ def tensor_map_geometry(t: torch.Tensor, rows: int) -> tuple[int, ...]:
             strides[i] = inner
         inner = strides[i] * n
     row = d * size
-    swizzle = 128 if row % 128 == 0 else row if row < 128 else 64
+    swizzle = 128 if row % 128 == 0 else row if row < 128 else \
+        64 if row % 64 == 0 else 128
     return (d, h, s, b, *strides, swizzle // size, 1, rows, 1)
 
 
@@ -108,11 +112,9 @@ def check_instance(fn: str, dtype: torch.dtype, d: int, dv: int) -> None:
     the pair of head dims (d, dv)."""
     if dtype in DTYPES and (d, dv) in HEAD_DIMS:
         return
-    hybrid = " (112 is Zamba2's: the hybrid family, ROADMAP A10 and A11)" \
-        if 112 in (d, dv) else ""
     raise ValueError(f"{fn}: the kernel takes float32 or bfloat16 with "
                      f"(q/k, v) head dims in {HEAD_DIMS}, got {dtype}, "
-                     f"({d}, {dv}){hybrid}")
+                     f"({d}, {dv})")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -178,4 +180,6 @@ def attention_bhsd(q, k, v, *, causal=True, window=0, use_kernel=True,
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err}")
     KERNEL.launches += 1
+    if not causal:
+        KERNEL.variant_launches["noncausal"] += 1
     return out

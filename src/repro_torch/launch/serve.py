@@ -2,12 +2,15 @@
 core manager, on the card unless `--device cpu`. `--arch` takes a dense
 GQA model (llama3-8b, granite-3-8b, phi3-medium-14b), a mixture-of-experts
 model (granite-moe-3b-a800m; mixtral-8x22b, which fits no single card at
-full width, with `--smoke`), an MLA model (minicpm3-4b) or Mamba2
-(mamba2-2.7b).
+full width, with `--smoke`), an MLA model (minicpm3-4b), the vision-frontend
+model internvl2-2b (text only, as the reference's engine serves it) or
+Mamba2 (mamba2-2.7b). The engine refuses the hybrid (zamba2-7b) and the
+encoder-decoder (seamless-m4t-large-v2), as the reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
       --smoke --device cpu --requests 4 --new-tokens 4
 """
@@ -28,8 +31,8 @@ from repro_torch.serving.engine import InferenceEngine
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b",
-                    help="a dense GQA, mixture-of-experts or MLA model, "
-                    "or mamba2-2.7b")
+                    help="a dense GQA, mixture-of-experts, MLA or "
+                    "vision-frontend model, or mamba2-2.7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)

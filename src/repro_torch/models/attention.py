@@ -73,8 +73,11 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
     prefill kernel on CUDA tensors, else in its plain version. `chunk` is
     the reference's switch to its online-softmax blocked formulation
     (`chunked_self_attention`); the kernel is that formulation, and both
-    give the exact result, so it changes nothing here."""
-    del chunk
+    give the exact result, so it changes nothing here, but for one
+    thing: as in the reference, only the blocked formulation masks a
+    bidirectional (`causal=False`) attention by `window`."""
+    if not causal and not (chunk and chunk < k.shape[1]):
+        window = 0
     return attention_bhsd(q, k, v, causal=causal, window=window,
                           scale=scale, q_offset=q_offset,
                           use_kernel=use_kernel)

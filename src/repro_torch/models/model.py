@@ -1,43 +1,57 @@
-"""Decoder models of the port: dense GQA, mixture-of-experts, MLA and
-Mamba2 (ssm): init / prefill / decode (the counterpart of
-`repro.models.model` for those families).
+"""The port's models, every family of the reference: dense GQA,
+mixture-of-experts, MLA, Mamba2 (ssm), the Zamba2 hybrid, the vision
+frontend (vlm) and the encoder-decoder (audio): init / prefill / decode
+(the counterpart of `repro.models.model`).
 
 Conventions, as in the reference where they can be:
   * parameters keep the reference's names and layouts, one `Block` or
     `MambaBlock` per layer instead of arrays stacked on a leading
     `num_layers` axis (`params_from_jax` converts the reference's tree);
+    the hybrid adds `shared`, one `Block` applied after every
+    `hybrid_period` Mamba2 layers, and the encoder-decoder decoder
+    `Block`s with cross-attention (`ln_x`, `xattn`) plus `enc_layers`
+    and `enc_final_ln`;
   * the GQA decode cache is {"k", "v": (L, B, S, Hkv, D), "pos"}, the
     MLA one the compressed latent {"latent": (L, B, S, kv_lora_rank +
     qk_rope_dim), "pos"} (rope applied before caching), the ssm one
-    {"conv": (L, B, W-1, C), "state": (L, B, H, P, N) float32, "pos"},
-    with `pos` a 0-d or (B,) int32 tensor of valid tokens on the model's
-    device;
+    {"conv": (L, B, W-1, C), "state": (L, B, H, P, N) float32, "pos"};
+    the hybrid's {"ssm": {"conv", "state"} stacked (G, per, B, ...),
+    "attn": {"k", "v": (G, B, S, Hkv, D)}, "tail": the last layers'
+    {"conv", "state"} or None, "pos"}; the encoder-decoder's {"k", "v",
+    "xk", "xv": (L, B, S_mem, Hkv, D), "pos"}; `pos` a 0-d or (B,) int32
+    tensor of valid tokens on the model's device (`empty_cache` makes
+    each layout);
   * the cache is written in place: `decode_step` updates its tensors and
     returns them with `pos + 1` (the reference returns new arrays; a copy
-    of the whole cache per step is what this avoids).
+    of the whole cache per step is what this avoids);
+  * the frontends are stubs, as in the reference: a vlm prefill takes the
+    frontend's `embeds` (B, frontend_tokens, D) before the tokens (they
+    count in positions, `pos` and `max_len`), an encoder-decoder prefill
+    encodes its `embeds` (frame embeddings) with bidirectional attention.
 
-On CUDA the prefill attention runs in the hand-written kernel
-`kernels/flash_attention`, the decode attention in
-`kernels/decode_attention` and the Mamba2 prefill's SSD scan in
-`kernels/ssd_scan`; on the CPU, or with `use_kernel=False` on any device,
-the attention kernels' plain PyTorch versions (`ref.py`) and the model's
-own chunked scan (`mamba2.ssd_chunked`, what the reference's model
-computes) run instead. MLA attends with a q/k head dim of qk_nope_dim +
-qk_rope_dim and a v head dim of v_head_dim (96 and 64 in MiniCPM3, an
-instance of both kernels); its decode expands K and V from the whole
-latent cache each step, as the reference does, or with `mla_absorb`
-attends against the latent itself in plain PyTorch (the reference's jnp
-`_mla_absorbed_attention`, which no kernel computes). The MoE FFN
-(`models/moe.py`) is batched matrix products, as in the reference. The
-attention keeps the softmax in float32, where the reference's jnp model
-path rounds its scores and probabilities to bfloat16, so at bfloat16 the
-two models agree to the reference's bfloat16 bound, not bit for bit. The
-Mamba2 decode step has no kernel, in the port as in the reference. The
-model runs on the card unless the caller passes `device="cpu"`.
-
-Other families (hybrid, encoder-decoder, vision frontend) raise
-NotImplementedError at `Model(...)`, naming the ROADMAP item that ports
-them.
+On CUDA the prefill attention (causal, or the encoder's non-causal)
+runs in the hand-written kernel `kernels/flash_attention`, the decode
+attention in `kernels/decode_attention` and the Mamba2 prefill's SSD scan
+(the hybrid's too) in `kernels/ssd_scan`; on the CPU, or with
+`use_kernel=False` on any device, the attention kernels' plain PyTorch
+versions (`ref.py`) and the model's own chunked scan
+(`mamba2.ssd_chunked`, what the reference's model computes) run instead.
+MLA attends with a q/k head dim of qk_nope_dim + qk_rope_dim and a v head
+dim of v_head_dim (96 and 64 in MiniCPM3, an instance of both kernels);
+its decode expands K and V from the whole latent cache each step, as the
+reference does, or with `mla_absorb` attends against the latent itself in
+plain PyTorch (the reference's jnp `_mla_absorbed_attention`, which no
+kernel computes). Zamba2's shared block attends at head dim 112, an
+instance of both kernels. The encoder-decoder's cross-attention is plain
+PyTorch (`attention.cross_attention`), as the reference computes it in
+jnp outside any Pallas kernel, rounding where the reference rounds. The
+MoE FFN (`models/moe.py`) is batched matrix products, as in the
+reference. The attention keeps the softmax in float32, where the
+reference's jnp model path rounds its scores and probabilities to
+bfloat16, so at bfloat16 the two models agree to the reference's
+bfloat16 bound, not bit for bit. The Mamba2 decode step has no kernel, in
+the port as in the reference. The model runs on the card unless the
+caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
@@ -59,25 +73,20 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this port does not run yet."""
+    """Raise NotImplementedError for a configuration no family of the
+    reference computes: the hybrid's shared block and the
+    encoder-decoder take GQA attention (the reference's decode paths for
+    them are GQA's), the other attention families GQA or MLA."""
     if cfg.family == "ssm":
         return
-    if cfg.family == "hybrid":
-        item = "the hybrid family (Zamba2, ROADMAP A10 and A11)"
-    elif cfg.is_encdec:
-        item = "encoder-decoder models (ROADMAP A11)"
-    elif cfg.frontend != "none":
-        item = f"the {cfg.frontend} frontend of the {cfg.family} family " \
-               f"(ROADMAP A11)"
-    elif cfg.family not in ("dense", "moe") or \
-            cfg.attn_type not in ("gqa", "mla"):
-        item = f"family {cfg.family!r} with attention {cfg.attn_type!r}"
-    else:
+    families = ("dense", "moe", "vlm", "hybrid", "audio")
+    attn_types = ("gqa",) if cfg.family == "hybrid" or cfg.is_encdec \
+        else ("gqa", "mla")
+    if cfg.family in families and cfg.attn_type in attn_types:
         return
-    raise NotImplementedError(f"{cfg.name}: the port runs dense, "
-                              f"mixture-of-experts (GQA or MLA attention) "
-                              f"and Mamba2 (ssm) models only; {item} is not "
-                              f"ported yet")
+    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} with "
+                              f"attention {cfg.attn_type!r} is no family "
+                              f"of the reference's models")
 
 
 def resolve_device(device) -> torch.device:
@@ -91,41 +100,54 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _fits(s: int, max_len: int | None) -> int:
+    """`max_len` (default `s`), which must hold a sequence of `s`."""
+    max_len = max_len or s
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    return max_len
+
+
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One decoder layer: attention (`ln1`, `attn`: GQA, or MLA's low-rank
-    projections) and SwiGLU MLP (`ln2`, `mlp`: dense, or `num_experts`
-    experts stacked on a leading axis behind a float32 router), with the
-    reference's parameter names and layouts
-    (`repro.models.model._init_attn`, `_init_mlp`)."""
+def _attn_params(cfg: ModelConfig, make) -> nn.ParameterDict:
+    """An attention's projections (`repro.models.model._init_attn`): GQA,
+    or MLA's low-rank ones."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    if cfg.attn_type == "mla":
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        attn = {
+            "q_down": make.normal(d, cfg.q_lora_rank),
+            "q_ln": make.ones(cfg.q_lora_rank),
+            "q_up": make.normal(cfg.q_lora_rank, h * qk),
+            "kv_down": make.normal(d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+            "kv_ln": make.ones(cfg.kv_lora_rank),
+            "k_up": make.normal(cfg.kv_lora_rank, h * cfg.qk_nope_dim),
+            "v_up": make.normal(cfg.kv_lora_rank, h * cfg.v_head_dim),
+            "wo": make.normal(h * cfg.v_head_dim, d),
+        }
+    else:
+        attn = {"wq": make.normal(d, h * hd), "wk": make.normal(d, hkv * hd),
+                "wv": make.normal(d, hkv * hd), "wo": make.normal(h * hd, d)}
+    return nn.ParameterDict({k: _param(v) for k, v in attn.items()})
 
-    def __init__(self, cfg: ModelConfig, make):
+
+class Block(nn.Module):
+    """One transformer layer: attention (`ln1`, `attn`: GQA, or MLA's
+    low-rank projections) and SwiGLU MLP (`ln2`, `mlp`: dense, or
+    `num_experts` experts stacked on a leading axis behind a float32
+    router); with `cross`, an encoder-decoder's cross-attention between
+    them (`ln_x`, `xattn`). The reference's parameter names and layouts
+    (`repro.models.model._init_block`)."""
+
+    def __init__(self, cfg: ModelConfig, make, cross: bool = False):
         super().__init__()
-        d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-        h, hkv = cfg.num_heads, cfg.num_kv_heads
+        d, f = cfg.d_model, cfg.d_ff
         self.ln1 = _param(make.ones(d))
-        if cfg.attn_type == "mla":
-            qk = cfg.qk_nope_dim + cfg.qk_rope_dim
-            attn = {
-                "q_down": make.normal(d, cfg.q_lora_rank),
-                "q_ln": make.ones(cfg.q_lora_rank),
-                "q_up": make.normal(cfg.q_lora_rank, h * qk),
-                "kv_down": make.normal(d, cfg.kv_lora_rank
-                                       + cfg.qk_rope_dim),
-                "kv_ln": make.ones(cfg.kv_lora_rank),
-                "k_up": make.normal(cfg.kv_lora_rank, h * cfg.qk_nope_dim),
-                "v_up": make.normal(cfg.kv_lora_rank, h * cfg.v_head_dim),
-                "wo": make.normal(h * cfg.v_head_dim, d),
-            }
-        else:
-            attn = {"wq": make.normal(d, h * hd),
-                    "wk": make.normal(d, hkv * hd),
-                    "wv": make.normal(d, hkv * hd),
-                    "wo": make.normal(h * hd, d)}
-        self.attn = nn.ParameterDict({k: _param(v) for k, v in attn.items()})
+        self.attn = _attn_params(cfg, make)
         self.ln2 = _param(make.ones(d))
         if cfg.num_experts:
             e = cfg.num_experts
@@ -137,6 +159,9 @@ class Block(nn.Module):
             mlp = {"w_gate": make.normal(d, f), "w_up": make.normal(d, f),
                    "w_down": make.normal(f, d)}
         self.mlp = nn.ParameterDict({k: _param(v) for k, v in mlp.items()})
+        if cross:
+            self.ln_x = _param(make.ones(d))
+            self.xattn = _attn_params(cfg, make)
 
 
 class MambaBlock(nn.Module):
@@ -191,9 +216,9 @@ class _Maker:
 
 
 class Model(nn.Module):
-    """Dense, MoE or MLA decoder, or Mamba2 model, with random weights
-    drawn from a `torch.Generator` seeded with `seed`, on `device`
-    (default "cuda")."""
+    """A model of any family of the reference, with random weights drawn
+    from a `torch.Generator` seeded with `seed`, on `device` (default
+    "cuda")."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
@@ -205,9 +230,18 @@ class Model(nn.Module):
         self.embed = _param(make.normal(cfg.padded_vocab, cfg.d_model))
         self.unembed = _param(make.normal(cfg.padded_vocab, cfg.d_model))
         self.final_ln = _param(make.ones(cfg.d_model))
-        layer = MambaBlock if cfg.family == "ssm" else Block
-        self.layers = nn.ModuleList(layer(cfg, make)
-                                    for _ in range(cfg.num_layers))
+        if cfg.family in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(MambaBlock(cfg, make)
+                                        for _ in range(cfg.num_layers))
+        else:
+            self.layers = nn.ModuleList(Block(cfg, make, cross=cfg.is_encdec)
+                                        for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared = Block(cfg, make)
+        if cfg.is_encdec:
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, make) for _ in range(cfg.encoder_layers))
+            self.enc_final_ln = _param(make.ones(cfg.d_model))
 
     @property
     def device(self) -> torch.device:
@@ -273,9 +307,10 @@ class Model(nn.Module):
     def _mla_scale(self) -> float:
         return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
 
-    def _attn_full(self, h, blk, positions, use_kernel):
-        """The attention half of a layer over a whole sequence; returns
-        (h, what the decode cache keeps: (k, v), or MLA's latent)."""
+    def _attn_full(self, h, blk, positions, use_kernel, causal=True):
+        """The attention half of a layer over a whole sequence, causal or
+        (an encoder's) bidirectional; returns (h, what the decode cache
+        keeps: (k, v), or MLA's latent)."""
         cfg = self.cfg
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
         if cfg.attn_type == "mla":
@@ -286,7 +321,7 @@ class Model(nn.Module):
         else:
             q, k, v = self._gqa_qkv(hn, blk.attn, positions)
             kept, scale = (k, v), None
-        o = attn.self_attention(q, k, v, causal=True,
+        o = attn.self_attention(q, k, v, causal=causal,
                                 window=cfg.sliding_window, scale=scale,
                                 chunk=cfg.attn_chunk, use_kernel=use_kernel)
         o = o.reshape(*o.shape[:2], -1)
@@ -300,24 +335,56 @@ class Model(nn.Module):
         return h + swiglu(hn, blk.mlp["w_gate"], blk.mlp["w_up"],
                           blk.mlp["w_down"])
 
+    def _cross_attn(self, h, blk, xk, xv):
+        """An encoder-decoder layer's cross-attention against the encoder
+        memory's keys and values (B, S_mem, Hkv, D): q from the decoder,
+        no rope, no mask (`repro.models.model._gqa_qkv_mem`); plain
+        PyTorch, as the reference's jnp."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        hn = rms_norm(h, blk.ln_x, cfg.norm_eps)
+        q = (hn @ blk.xattn["wq"]).reshape(b, s, cfg.num_heads,
+                                            cfg.resolved_head_dim)
+        o = attn.cross_attention(q, xk, xv)
+        return h + o.reshape(b, s, -1) @ blk.xattn["wo"]
+
+    def _memory_kv(self, memory, blk):
+        """The encoder memory's keys and values for one decoder layer's
+        cross-attention (B, S_mem, Hkv, D), kept in the decode cache."""
+        cfg = self.cfg
+        b, s, _ = memory.shape
+        shape = (b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return ((memory @ blk.xattn["wk"]).reshape(shape),
+                (memory @ blk.xattn["wv"]).reshape(shape))
+
     # ========================= serving: prefill ======================= #
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None, *,
-                use_kernel: bool = True):
+                embeds: torch.Tensor | None = None, use_kernel: bool = True):
         """Process the full prompt (B, S) int tokens; returns (last-token
         logits (B, 1, padded_vocab), cache). Cache arrays are allocated at
-        `max_len` (default: prompt length); an ssm cache does not grow
-        with the sequence and ignores it."""
+        `max_len` (default: the prompt's length); an ssm cache does not
+        grow with the sequence and ignores it. `embeds` (B, S_f, D): a
+        vlm's frontend embeddings, put before the tokens (they count in
+        the positions and in `max_len`; without them the model reads
+        text only), or an encoder-decoder's frame embeddings, which it
+        needs; other families ignore them, as the reference does."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds, device=self.device).to(
+                self.dtype)
         if cfg.family == "ssm":
             return self._prefill_ssm(tokens, use_kernel)
+        if cfg.family == "hybrid":
+            return self._prefill_hybrid(tokens, max_len, use_kernel)
+        if cfg.is_encdec:
+            return self._prefill_encdec(tokens, embeds, max_len, use_kernel)
         h = embed(tokens, self.embed)
+        if cfg.frontend != "none" and embeds is not None:
+            h = torch.cat([embeds, h], dim=1)
         b, s, _ = h.shape
-        max_len = max_len or s
-        if s > max_len:
-            raise ValueError(f"prompt of {s} tokens exceeds max_len "
-                             f"{max_len}")
+        max_len = _fits(s, max_len)
         positions = torch.arange(s, device=self.device)[None, :]
         cache = self.empty_cache(b, max_len)
         ring = bool(cfg.swa_ring and cfg.sliding_window)
@@ -332,27 +399,69 @@ class Model(nn.Module):
             else:
                 cache["k"][i, :, :s] = kept[0]
                 cache["v"][i, :, :s] = kept[1]
-        h = rms_norm(h, self.final_ln, cfg.norm_eps)
-        logits = unembed(h[:, -1:], self.unembed, cfg)
-        cache["pos"] = torch.tensor(s, dtype=torch.int32, device=self.device)
-        return logits, cache
+        return self._head(h[:, -1:]), self._with_pos(cache, s)
 
-    def empty_cache(self, batch: int, max_len: int) -> dict:
-        """The zeroed decode cache of an attention model for `batch`
-        sequences of up to `max_len` tokens, without "pos": MLA's latent,
-        or K and V (the `swa_ring` ring holds the window)."""
+    def _head(self, h):
+        """Logits of the last hidden states (B, S, D)."""
+        return unembed(rms_norm(h, self.final_ln, self.cfg.norm_eps),
+                       self.unembed, self.cfg)
+
+    def _with_pos(self, cache, s):
+        cache["pos"] = torch.tensor(s, dtype=torch.int32, device=self.device)
+        return cache
+
+    def empty_cache(self, batch: int, max_len: int,
+                    memory_len: int | None = None) -> dict:
+        """The zeroed decode cache of this model for `batch` sequences of
+        up to `max_len` tokens, without "pos", in the layout of its family
+        (module docstring): K and V (the `swa_ring` ring holds the
+        window), MLA's latent, the ssm's conv history and state (which
+        ignore `max_len`), the hybrid's groups, or the encoder-decoder's
+        self and cross caches, the latter over `memory_len` encoder
+        frames (default: the config's `frontend_tokens`)."""
         cfg = self.cfg
+        f32 = torch.float32
+
+        def zeros(*shape, dtype=None):
+            return torch.zeros(shape, dtype=dtype or self.dtype,
+                               device=self.device)
+
+        conv = (cfg.ssm_conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state)
+        state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        if cfg.family == "ssm":
+            return {"conv": zeros(cfg.num_layers, batch, *conv),
+                    "state": zeros(cfg.num_layers, batch, *state, dtype=f32)}
+        kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        if cfg.family == "hybrid":
+            g, per = cfg.num_hybrid_groups, cfg.hybrid_period
+            rem = cfg.hybrid_remainder
+            tail = {"conv": zeros(rem, batch, *conv),
+                    "state": zeros(rem, batch, *state, dtype=f32)} \
+                if rem else None
+            return {"ssm": {"conv": zeros(g, per, batch, *conv),
+                            "state": zeros(g, per, batch, *state,
+                                           dtype=f32)},
+                    "attn": {"k": zeros(g, batch, max_len, *kv),
+                             "v": zeros(g, batch, max_len, *kv)},
+                    "tail": tail}
         if cfg.attn_type == "mla":
-            shapes = {"latent": (cfg.num_layers, batch, max_len,
-                                 cfg.kv_lora_rank + cfg.qk_rope_dim)}
-        else:
-            ring = bool(cfg.swa_ring and cfg.sliding_window)
-            kv = (cfg.num_layers, batch,
-                  cfg.sliding_window if ring else max_len,
-                  cfg.num_kv_heads, cfg.resolved_head_dim)
-            shapes = {"k": kv, "v": kv}
-        return {key: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for key, shape in shapes.items()}
+            return {"latent": zeros(cfg.num_layers, batch, max_len,
+                                    cfg.kv_lora_rank + cfg.qk_rope_dim)}
+        ring = bool(cfg.swa_ring and cfg.sliding_window)
+        rows = cfg.sliding_window if ring else max_len
+        cache = {"k": zeros(cfg.num_layers, batch, rows, *kv),
+                 "v": zeros(cfg.num_layers, batch, rows, *kv)}
+        if cfg.is_encdec:
+            mem = memory_len or cfg.frontend_tokens
+            cache["xk"] = zeros(cfg.num_layers, batch, mem, *kv)
+            cache["xv"] = zeros(cfg.num_layers, batch, mem, *kv)
+        return cache
+
+    def cache_batch_dim(self, key: str) -> int:
+        """The batch axis of the cache's tensors under `key`, a key of
+        `empty_cache`'s dict: 2 under the hybrid's "ssm" (groups, layers of
+        a group, B, ...), else 1 (after the layers or the groups)."""
+        return 2 if self.cfg.family == "hybrid" and key == "ssm" else 1
 
     def _to_ring(self, k, s):
         """§Perf: one layer's full-length K/V (B,S,H,D) as a sliding-window
@@ -367,19 +476,87 @@ class Model(nn.Module):
         return out
 
     def _prefill_ssm(self, tokens, use_kernel):
-        cfg = self.cfg
         h = embed(tokens, self.embed)
-        convs, states = [], []
-        for blk in self.layers:
-            h, conv, state = self._mamba_block_with_state(h, blk, use_kernel)
-            convs.append(conv)
-            states.append(state)
-        h = rms_norm(h, self.final_ln, cfg.norm_eps)
-        logits = unembed(h[:, -1:], self.unembed, cfg)
-        pos = torch.tensor(tokens.shape[1], dtype=torch.int32,
-                           device=self.device)
-        return logits, {"conv": torch.stack(convs),
-                        "state": torch.stack(states), "pos": pos}
+        cache = self.empty_cache(tokens.shape[0], 0)
+        for i, blk in enumerate(self.layers):
+            h, cache["conv"][i], cache["state"][i] = \
+                self._mamba_block_with_state(h, blk, use_kernel)
+        return self._head(h[:, -1:]), self._with_pos(cache, tokens.shape[1])
+
+    def _hybrid_groups(self, cache):
+        """The hybrid's layers in order, as (layers, conv, state, k, v):
+        each group of `hybrid_period` Mamba2 layers with its slices of the
+        cache's "ssm" and its shared block's K/V cache, then the tail's
+        layers with "tail" and no K/V (the shared block does not follow
+        them)."""
+        cfg = self.cfg
+        per, g = cfg.hybrid_period, cfg.num_hybrid_groups
+        ssm, kv = cache["ssm"], cache["attn"]
+        out = [(self.layers[gi * per:(gi + 1) * per], ssm["conv"][gi],
+                ssm["state"][gi], kv["k"][gi], kv["v"][gi])
+               for gi in range(g)]
+        if cfg.hybrid_remainder:
+            out.append((self.layers[g * per:], cache["tail"]["conv"],
+                        cache["tail"]["state"], None, None))
+        return out
+
+    def _prefill_hybrid(self, tokens, max_len, use_kernel):
+        """Zamba2: each group of `hybrid_period` Mamba2 layers (their
+        scans in the ssd_scan kernel on CUDA), then the shared attention
+        block over the whole sequence, causal (the flash_attention
+        kernel); the tail's Mamba2 layers last."""
+        b, s = tokens.shape
+        max_len = _fits(s, max_len)
+        h = embed(tokens, self.embed)
+        positions = torch.arange(s, device=self.device)[None, :]
+        cache = self.empty_cache(b, max_len)
+        for layers, conv, state, ck, cv in self._hybrid_groups(cache):
+            for j, blk in enumerate(layers):
+                h, conv[j], state[j] = self._mamba_block_with_state(
+                    h, blk, use_kernel)
+            if ck is not None:
+                h, (k, v) = self._attn_full(h, self.shared, positions,
+                                            use_kernel)
+                h = self._mlp(h, self.shared)
+                ck[:, :s] = k
+                cv[:, :s] = v
+        return self._head(h[:, -1:]), self._with_pos(cache, s)
+
+    def _prefill_encdec(self, tokens, embeds, max_len, use_kernel):
+        """Seamless: the encoder's blocks over the frame embeddings,
+        bidirectional (the flash_attention kernel, non-causal), then
+        `enc_final_ln`; the decoder's blocks over the tokens: causal
+        self-attention (the kernel; the reference gives it no window),
+        cross-attention on the memory, the MLP."""
+        if embeds is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder prefill "
+                             f"needs the frame embeddings (embeds=)")
+        cfg = self.cfg
+        enc_pos = torch.arange(embeds.shape[1], device=self.device)[None, :]
+        henc = embeds
+        for blk in self.enc_layers:
+            henc, _ = self._attn_full(henc, blk, enc_pos, use_kernel,
+                                      causal=False)
+            henc = self._mlp(henc, blk)
+        memory = rms_norm(henc, self.enc_final_ln, cfg.norm_eps)
+        b, s = tokens.shape
+        max_len = _fits(s, max_len)
+        h = embed(tokens, self.embed)
+        positions = torch.arange(s, device=self.device)[None, :]
+        cache = self.empty_cache(b, max_len, memory.shape[1])
+        for i, blk in enumerate(self.layers):
+            hn = rms_norm(h, blk.ln1, cfg.norm_eps)
+            q, k, v = self._gqa_qkv(hn, blk.attn, positions)
+            o = attn.self_attention(q, k, v, causal=True,
+                                    use_kernel=use_kernel)
+            h = h + o.reshape(b, s, -1) @ blk.attn["wo"]
+            xk, xv = self._memory_kv(memory, blk)
+            h = self._mlp(self._cross_attn(h, blk, xk, xv), blk)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+            cache["xk"][i] = xk
+            cache["xv"][i] = xv
+        return self._head(h[:, -1:]), self._with_pos(cache, s)
 
     def _mamba_block_with_state(self, h, blk, use_kernel):
         """`mamba2.mamba2_block` that also returns the decode cache: the
@@ -416,42 +593,65 @@ class Model(nn.Module):
                     use_kernel: bool = True):
         """One decode step. token: (B, 1) int. Returns (logits (B, 1,
         padded_vocab), cache), the cache updated in place with pos + 1.
-        The ssm step launches no kernel: `use_kernel` applies to the
-        attention of the dense family."""
+        The Mamba2 layers' step launches no kernel: `use_kernel` applies
+        to the attention."""
         cfg = self.cfg
         pos = torch.as_tensor(cache["pos"], device=self.device).to(
             torch.int32)
         token = torch.as_tensor(token, device=self.device)
         h = embed(token, self.embed)
-        if cfg.family == "ssm":
-            return self._decode_ssm(cache, h, pos)
         positions = pos.reshape(1, 1) if pos.dim() == 0 else pos[:, None]
-        for i, blk in enumerate(self.layers):
-            if cfg.attn_type == "mla":
-                h = self._mla_decode_block(h, blk, cache["latent"][i], pos,
-                                           positions, use_kernel)
-            else:
-                h = self._gqa_decode_block(h, blk, cache["k"][i],
-                                           cache["v"][i], pos, positions,
-                                           use_kernel)
-        h = rms_norm(h, self.final_ln, cfg.norm_eps)
-        logits = unembed(h, self.unembed, cfg)
+        if cfg.family == "ssm":
+            for i, blk in enumerate(self.layers):
+                h = self._mamba_decode(h, blk, cache["conv"], cache["state"],
+                                       i)
+        elif cfg.family == "hybrid":
+            for layers, conv, state, ck, cv in self._hybrid_groups(cache):
+                for j, blk in enumerate(layers):
+                    h = self._mamba_decode(h, blk, conv, state, j)
+                if ck is not None:
+                    h = self._gqa_decode_block(h, self.shared, ck, cv, pos,
+                                               positions, use_kernel)
+        elif cfg.is_encdec:
+            for i, blk in enumerate(self.layers):
+                h = self._encdec_decode_block(h, blk, cache, i, pos,
+                                              positions, use_kernel)
+        else:
+            for i, blk in enumerate(self.layers):
+                if cfg.attn_type == "mla":
+                    h = self._mla_decode_block(h, blk, cache["latent"][i],
+                                               pos, positions, use_kernel)
+                else:
+                    h = self._gqa_decode_block(h, blk, cache["k"][i],
+                                               cache["v"][i], pos, positions,
+                                               use_kernel)
         new = {key: t for key, t in cache.items() if key != "pos"}
-        return logits, {**new, "pos": pos + 1}
+        return self._head(h), {**new, "pos": pos + 1}
 
-    def _decode_ssm(self, cache, h, pos):
-        """Every layer's one-token Mamba2 block, its conv history and
-        state written back into the cache in place."""
+    def _mamba_decode(self, h, blk, conv, state, i):
+        """One Mamba2 layer's one-token block (plain, as in the
+        reference), its conv history and state written back in place at
+        index `i` of `conv` and `state`."""
+        h, new = mamba2.mamba2_block_decode(
+            h, blk, {"conv": conv[i], "state": state[i]}, self.cfg)
+        conv[i] = new["conv"]
+        state[i] = new["state"]
+        return h
+
+    def _encdec_decode_block(self, h, blk, cache, i, pos, positions,
+                             use_kernel):
+        """Seamless's decoder layer `i` for one token: self-attention
+        written into the cache and attended in the decode_attention
+        kernel (no window, as in the reference), cross-attention against
+        the cached memory keys and values, the MLP."""
         cfg = self.cfg
-        for i, blk in enumerate(self.layers):
-            h, new = mamba2.mamba2_block_decode(
-                h, blk, {"conv": cache["conv"][i],
-                         "state": cache["state"][i]}, cfg)
-            cache["conv"][i] = new["conv"]
-            cache["state"][i] = new["state"]
-        h = rms_norm(h, self.final_ln, cfg.norm_eps)
-        return unembed(h, self.unembed, cfg), {
-            "conv": cache["conv"], "state": cache["state"], "pos": pos + 1}
+        hn = rms_norm(h, blk.ln1, cfg.norm_eps)
+        q, k, v = self._gqa_qkv(hn, blk.attn, positions)
+        ck, cv = attn.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
+        o = attn.decode_attention(q, ck, cv, pos + 1, use_kernel=use_kernel)
+        h = h + o.reshape(*o.shape[:2], -1) @ blk.attn["wo"]
+        return self._mlp(self._cross_attn(h, blk, cache["xk"][i],
+                                          cache["xv"][i]), blk)
 
     def _gqa_decode_block(self, h, blk, ck, cv, pos, positions, use_kernel):
         cfg = self.cfg
@@ -535,24 +735,36 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _flatten(prefix: str, tree: dict, index: int | None = None) -> dict:
+    """One layer of the reference's tree (entry `index` of each stacked
+    leaf, or the leaves themselves) as state-dict entries under `prefix`:
+    a leaf `ln1` as `<prefix>ln1`, a group `attn` as `<prefix>attn.wq`."""
+    out = {}
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(f"{prefix}{name}.", val, index))
+        else:
+            out[f"{prefix}{name}"] = _tensor(val if index is None
+                                             else val[index])
+    return out
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
     """The reference's stacked parameter dict (`repro.models.Model.init`,
     its leaves as numpy arrays) as a state dict of the port's `Model`:
     `Model(cfg, device=...).load_state_dict(params_from_jax(cfg, tree))`
-    makes the port compute what the reference computes."""
+    makes the port compute what the reference computes. Per-layer leaves
+    are stacked on a leading axis (`layers`, `enc_layers`); the hybrid's
+    `shared` block is one layer's leaves."""
     check_supported(cfg)
-    layers = tree["layers"]
-    state = {name: _tensor(tree[name])
-             for name in ("embed", "unembed", "final_ln")}
-    if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            for name, stacked in layers.items():
-                state[f"layers.{i}.{name}"] = _tensor(stacked[i])
-        return state
-    for i in range(cfg.num_layers):
-        for name in ("ln1", "ln2"):
-            state[f"layers.{i}.{name}"] = _tensor(layers[name][i])
-        for group in ("attn", "mlp"):
-            for name, stacked in layers[group].items():
-                state[f"layers.{i}.{group}.{name}"] = _tensor(stacked[i])
+    state = {}
+    for name in ("embed", "unembed", "final_ln", "enc_final_ln"):
+        if name in tree:
+            state[name] = _tensor(tree[name])
+    for group, count in (("layers", cfg.num_layers),
+                         ("enc_layers", cfg.encoder_layers)):
+        for i in range(count if group in tree else 0):
+            state.update(_flatten(f"{group}.{i}.", tree[group], i))
+    if "shared" in tree:
+        state.update(_flatten("shared.", tree["shared"]))
     return state

@@ -11,9 +11,13 @@ completion -> `finish_request`/`free_memory`. The manager's Selective
 Core Idling runs on a wall-clock period, so an idle engine deep-idles its
 host cores (age-halting) and a bursty one wakes them.
 
-It serves the decoder-only families the port runs: dense and
-mixture-of-experts models with GQA or MLA attention (an MLA cache holds
-the compressed latent per slot) and Mamba2. Differences from the
+It serves the decoder-only families, as the reference's engine does:
+dense and mixture-of-experts models with GQA or MLA attention (an MLA
+cache holds the compressed latent per slot), the vision-frontend family
+(InternVL2; text only: the engine passes no frontend embeddings, as the
+reference's does) and Mamba2. Like the reference's, it refuses the
+hybrid and encoder-decoder families: drive those through
+`Model.prefill` and `Model.decode_step`. Differences from the
 reference: the model (`repro_torch.models.Model`) carries its own
 weights, so the engine takes no `params`; the cache is updated in
 place. For the
@@ -96,19 +100,12 @@ class InferenceEngine:
 
     # ------------------------- device functions ------------------------ #
     def _empty_cache(self):
-        cfg = self.model.cfg
-        b, dev, dtype = self.max_batch, self.device, self.model.dtype
-        if cfg.family == "ssm":
-            shapes = {"conv": ((cfg.num_layers, b, cfg.ssm_conv_width - 1,
-                                cfg.d_inner + 2 * cfg.ssm_state), dtype),
-                      "state": ((cfg.num_layers, b, cfg.ssm_heads,
-                                 cfg.ssm_head_dim, cfg.ssm_state),
-                                torch.float32)}
-            cache = {key: torch.zeros(shape, dtype=dt, device=dev)
-                     for key, (shape, dt) in shapes.items()}
-        else:   # K and V, or MLA's latent (Model.empty_cache)
-            cache = self.model.empty_cache(b, self.max_len)
-        cache["pos"] = torch.zeros(b, dtype=torch.int32, device=dev)
+        """The model's cache for `max_batch` slots (`Model.empty_cache`:
+        K and V, MLA's latent, or Mamba2's conv history and state) with a
+        per-slot `pos`."""
+        cache = self.model.empty_cache(self.max_batch, self.max_len)
+        cache["pos"] = torch.zeros(self.max_batch, dtype=torch.int32,
+                                   device=self.device)
         return cache
 
     def _prefill_fn(self, tokens):

@@ -72,16 +72,19 @@ def _close(a, b, **kw):
 class TestFlashAttentionPlain:
     """B2's plain version vs the jnp oracle and the Pallas kernel."""
 
-    def _case(self, b, h, hkv, s, d, dtype, window=0, seed=0):
+    def _case(self, b, h, hkv, s, d, dtype, window=0, seed=0, causal=True):
         q, k, v = _draw(seed, (b, s, h, d), (b, s, hkv, d), (b, s, hkv, d))
         (tq, jq), (tk, jk), (tv, jv) = (_both(x, dtype) for x in (q, k, v))
-        before = fa_ops.KERNEL.launches
-        port = fa_ops.attention_bhsd(tq, tk, tv, causal=True, window=window)
-        assert fa_ops.KERNEL.launches == before   # CPU: the plain version
+        before = fa_ops.KERNEL.launches, dict(fa_ops.KERNEL.variant_launches)
+        port = fa_ops.attention_bhsd(tq, tk, tv, causal=causal,
+                                     window=window)
+        # CPU: the plain version, no launch counted
+        assert (fa_ops.KERNEL.launches,
+                dict(fa_ops.KERNEL.variant_launches)) == before
         oracle = jnp.swapaxes(jnp_flash_oracle(
             jnp.swapaxes(jq, 1, 2), jnp.swapaxes(jk, 1, 2),
-            jnp.swapaxes(jv, 1, 2), causal=True, window=window), 1, 2)
-        pallas = ref_fa_ops.attention_bhsd(jq, jk, jv, causal=True,
+            jnp.swapaxes(jv, 1, 2), causal=causal, window=window), 1, 2)
+        pallas = ref_fa_ops.attention_bhsd(jq, jk, jv, causal=causal,
                                            window=window, interpret=True)
         _close(port, oracle, **tol(dtype))
         _close(port, pallas, **tol(dtype))
@@ -94,6 +97,19 @@ class TestFlashAttentionPlain:
     @pytest.mark.parametrize("window", [32, 128])
     def test_sliding_window(self, window):
         self._case(1, 2, 2, 256, 64, "float32", window=window, seed=1)
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    def test_zamba2_head_dim(self, dtype):
+        """Zamba2's shared block: head dim 112, heads over as many KV
+        heads."""
+        self._case(1, 4, 4, 200, 112, dtype, seed=4)
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    def test_bidirectional(self, dtype):
+        """An encoder's attention (Seamless): every key visible (S a
+        multiple of the reference's block, which it pads only when
+        causal)."""
+        self._case(2, 4, 4, 256, 64, dtype, seed=5, causal=False)
 
     def test_length_not_a_block_multiple(self):
         """S = 200: the reference pads to its 128 block, the port masks
@@ -144,6 +160,12 @@ class TestDecodeAttentionPlain:
     def test_sliding_window(self):
         self._case(2, 4, 4, 512, 64, "float32", window=128,
                    pos=[300, 500], seed=1)
+
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    def test_zamba2_head_dim(self, dtype):
+        """Zamba2's shared block: q (B, 32, 112) against caches of as many
+        heads, here 8 over 8."""
+        self._case(2, 8, 8, 512, 112, dtype, pos=[511, 37], seed=2)
 
     def test_scalar_pos_broadcasts(self):
         q, kc, vc = (torch.from_numpy(x) for x in
@@ -261,18 +283,32 @@ class TestWrappers:
         assert fa_ops.tensor_map_geometry(v, fa_ops.BLOCK_KV) == (
             64, h, s, b, 128, h * 128, h * 128 * s, 64, 1, 64, 1)
 
+    def test_tensor_map_geometry_of_zamba2_heads(self):
+        """Zamba2's rows of 112 bf16 values (224 bytes) take the 128-byte
+        swizzle over two boxes of 64 columns; the map's D stays 112, so
+        TMA fills the tile's columns 112 to 127 with zeros."""
+        b, s, h = 1, 1024, 32
+        t = torch.zeros(b, s, h, 112, dtype=torch.bfloat16)
+        assert fa_ops.tensor_map_geometry(t, fa_ops.BLOCK_Q) == (
+            112, h, s, b, 224, h * 224, h * 224 * s, 64, 1, 128, 1)
+        assert fa_ops.tensor_map_geometry(t, fa_ops.BLOCK_KV)[7:] == (
+            64, 1, 64, 1)
+        qkv = torch.zeros(2, 77, 3 * 8, 112, dtype=torch.bfloat16)
+        geo = fa_ops.tensor_map_geometry(qkv[:, :, 8:16], fa_ops.BLOCK_KV)
+        assert geo == (112, 8, 77, 2, 224, 24 * 224, 24 * 224 * 77, 64, 1,
+                       64, 1)
+        assert all(x % 16 == 0 for x in geo[4:7])
+
     def test_instances_of_the_cuda_kernels(self):
-        """The CUDA wrappers' checks: the four (q/k, v) pairs in both
-        dtypes pass; Zamba2's (112, 112) is refused naming the hybrid
-        item, as is any other pair or dtype."""
-        for d, dv in ((32, 32), (64, 64), (128, 128), (96, 64)):
+        """The CUDA wrappers' checks: the five (q/k, v) pairs in both
+        dtypes pass, Zamba2's (112, 112) among them; any other pair or
+        dtype is refused."""
+        for d, dv in ((32, 32), (64, 64), (128, 128), (96, 64), (112, 112)):
             for dtype in (torch.float32, torch.bfloat16):
                 fa_ops.check_instance("attention_bhsd", dtype, d, dv)
-        for d, dv in ((112, 112), (96, 96), (64, 96), (48, 48)):
+        for d, dv in ((112, 64), (96, 96), (64, 96), (48, 48)):
             with pytest.raises(ValueError, match=r"head dims in"):
                 fa_ops.check_instance("decode_bhd", torch.bfloat16, d, dv)
-        with pytest.raises(ValueError, match="hybrid family, ROADMAP A10"):
-            fa_ops.check_instance("attention_bhsd", torch.bfloat16, 112, 112)
         with pytest.raises(ValueError, match="float16"):
             fa_ops.check_instance("attention_bhsd", torch.float16, 96, 64)
 
@@ -305,6 +341,16 @@ class TestModelAttention:
         _close(attn.self_attention(tq, tk, tv, window=window),
                ref_attn.self_attention(jq, jk, jv, window=window),
                **tol(dtype))
+
+    @pytest.mark.parametrize("chunk", [0, 16])
+    def test_bidirectional_window(self, chunk):
+        """As in the reference, a window masks a bidirectional attention
+        only in the blocked formulation (chunk < keys)."""
+        q, k, v = _draw(9, (1, 40, 4, 16), (1, 40, 2, 16), (1, 40, 2, 16))
+        kw = dict(causal=False, window=7, chunk=chunk)
+        _close(attn.self_attention(*map(torch.from_numpy, (q, k, v)), **kw),
+               ref_attn.self_attention(*map(jnp.asarray, (q, k, v)), **kw),
+               **tol("float32"))
 
     def test_attention_unmasked_and_cross(self):
         q, k, v = _draw(7, (2, 5, 4, 16), (2, 9, 2, 16), (2, 9, 2, 16))

@@ -5,10 +5,14 @@ event engine's torch settler on CUDA against its numpy settler (under
 guardband faults too), a padded mixed fleet and a checkpoint resume on
 CUDA, the checkpoint store onto the card, the dense, mixture-of-experts
 and MLA models and serving engine through the attention kernels (MLA's
-(96, 64) head dims an instance of both), and the Mamba2 model and engine
-through the SSD scan kernel. Every test here needs an NVIDIA GPU and skips without one; this
-file imports neither jax nor the reference, so it runs on a machine that
-has only the port's dependencies:
+(96, 64) head dims an instance of both), the Mamba2 model and engine
+through the SSD scan kernel, and the hybrid (Zamba2, its shared block at
+head dim 112, an instance of both attention kernels), vision-frontend
+(InternVL2) and encoder-decoder (Seamless, its encoder's attention
+non-causal) models through the kernels of their paths. Every test here
+needs an NVIDIA GPU and skips without one; this file imports neither jax
+nor the reference, so it runs on a machine that has only the port's
+dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -307,22 +311,22 @@ def test_event_settler_on_cuda_under_guardband(cuda_device):
 
 
 def test_attention_kernels_refuse_other_head_dim_pairs(cuda_device):
-    """B2 and B3 have instances for equal head dims of 32, 64 and 128 and
-    for MLA's (96, 64) only: on CUDA their wrappers raise for any other
-    pair (Zamba2's 112 naming the hybrid item), launch nothing, and take
-    no plain route for a v head dim other than q's."""
+    """B2 and B3 have instances for equal head dims of 32, 64, 128 and 112
+    and for MLA's (96, 64) only: on CUDA their wrappers raise for any
+    other pair, launch nothing, and take no plain route for a v head dim
+    other than q's."""
     q, v = _draw(cuda_device, torch.bfloat16, 0, (1, 8, 4, 96),
                  (1, 8, 4, 32))
-    z = _draw(cuda_device, torch.bfloat16, 0, (1, 8, 4, 112))[0]
+    z = _draw(cuda_device, torch.bfloat16, 0, (1, 8, 4, 48))[0]
     before = (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches)
     for use_kernel in (True, False):
         with pytest.raises(ValueError, match="no instance"):
             fa_ops.attention_bhsd(q, q, v, use_kernel=use_kernel)
         with pytest.raises(ValueError, match="no instance"):
             dec_ops.decode_bhd(q[:, 0], q, v, 4, use_kernel=use_kernel)
-    with pytest.raises(ValueError, match="hybrid family"):
+    with pytest.raises(ValueError, match="head dims in"):
         fa_ops.attention_bhsd(z, z, z)
-    with pytest.raises(ValueError, match="hybrid family"):
+    with pytest.raises(ValueError, match="head dims in"):
         dec_ops.decode_bhd(z[:, 0], z, z, 4)
     assert (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches) == before
 
@@ -426,6 +430,75 @@ def test_flash_tc_q_offset(cuda_device, causal, window):
     and cross attention without a mask."""
     _flash_hold(cuda_device, 2, 8, 2, 100, 300, 128, causal=causal,
                 window=window, q_offset=200 if causal else 0)
+
+
+# Zamba2's shared block: head dim 112 (224-byte rows), 32 heads over 32
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("b,h,s,window", [(1, 32, 1024, 0), (2, 8, 300, 0),
+                                          (1, 4, 129, 0), (2, 4, 700, 96)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_zamba2_head_dim(cuda_device, b, h, s, window, causal,
+                                      dtype):
+    """B2's (112, 112) instance against its plain version in both dtypes,
+    causal and not, on q, k and v sliced from one packed (B, S, 3 H, 112)
+    tensor (rows of 224 bytes, strides of 3 H of them): in bfloat16, tiles
+    of 128 columns in shared memory whose columns 112 to 127 TMA fills
+    with zeros (two boxes of 64 at the 128-byte swizzle), the output
+    written on its 112 columns only (a head's row is followed by the
+    next head's); the CUDA-core kernel in float32."""
+    qkv = _draw(cuda_device, dtype, 7, (b, s, 3 * h, 112))[0]
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:2 * h], qkv[:, :, 2 * h:]
+    before = fa_ops.KERNEL.launches
+    out = fa_ops.attention_bhsd(q, k, v, causal=causal, window=window)
+    assert fa_ops.KERNEL.launches == before + 1
+    assert out.shape == (b, s, h, 112)
+    ref = fa_ops.attention_bhsd(q, k, v, causal=causal, window=window,
+                                use_kernel=False)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_bidirectional_at_seamless_encoder(cuda_device, dtype):
+    """Seamless's encoder: (1, 1,024 frames, 16 heads over 16, 64),
+    non-causal, against the plain version."""
+    qkv = _draw(cuda_device, dtype, 8, (1, 1024, 16, 64),
+                (1, 1024, 16, 64), (1, 1024, 16, 64))
+    counts = fa_ops.KERNEL.variant_launches
+    before = fa_ops.KERNEL.launches, counts["noncausal"]
+    out = fa_ops.attention_bhsd(*qkv, causal=False)
+    assert (fa_ops.KERNEL.launches, counts["noncausal"]) == (
+        before[0] + 1, before[1] + 1)
+    fa_ops.attention_bhsd(*qkv, causal=True)
+    assert (fa_ops.KERNEL.launches, counts["noncausal"]) == (
+        before[0] + 2, before[1] + 1)
+    ref = fa_ops.attention_bhsd(*qkv, causal=False, use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("lens", [[1536, 1, 700, 9], 1000],
+                         ids=["slots", "scalar"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_zamba2_head_dim(cuda_device, lens, dtype):
+    """B3's (112, 112) instance against its plain version: q (4, 32, 112)
+    against caches (4, 1,536, 32, 112), a per-slot and a scalar pos; four
+    elements a lane in lanes 0 to 27, none in 28 to 31."""
+    b, h, s = 4, 32, 1536
+    q, kc, vc = _draw(cuda_device, dtype, 9, (b, h, 112), (b, s, h, 112),
+                      (b, s, h, 112))
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dec_ops.KERNEL.launches
+    out = dec_ops.decode_bhd(q, kc, vc, pos)
+    assert dec_ops.KERNEL.launches == before + 1
+    assert out.shape == (b, h, 112)
+    ref = dec_ops.decode_bhd(q, kc, vc, pos, use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("hkv", [8, 2])
+def test_decode_kernel_zamba2_head_dim_grouped(cuda_device, hkv):
+    """The (112, 112) instance under the kG = 4 and 16 groupings too."""
+    _decode_hold(cuda_device, 2, 32, hkv, 1024, 112, [999, 17])
 
 
 def _decode_hold(device, b, h, hkv, s, d, lens, dtype=torch.bfloat16,
@@ -655,6 +728,90 @@ def test_moe_and_mla_engine_on_cuda_matches_cpu(cuda_device, name):
     """Same weights, same prompts: the engine on the card gives the CPU
     engine's greedy tokens at float32."""
     cfg = _moe_mla_cfg(name)
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    on_gpu = Model(cfg, device=cuda_device, seed=0)
+    on_gpu.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 999, n).tolist() for n in (5, 12, 7, 9)]
+    outputs = []
+    for model in (on_cpu, on_gpu):
+        eng = InferenceEngine(model, max_batch=2, max_len=32,
+                              clock=lambda: 0.0)
+        reqs = []
+        for p in prompts:
+            eng.submit(p, 5)
+            reqs.append(eng.pending[-1])
+        eng.run_until_drained()
+        outputs.append([r.output for r in reqs])
+    assert outputs[0] == outputs[1]
+
+
+# the smoke configs of the new families at instances of the kernels:
+# Zamba2's shared block at its full head dim of 112 and an SSD state of 32
+# (the smoke's 16 is no instance of B4)
+FAMILY_SMOKE = {"zamba2-7b": dict(head_dim=112, ssm_state=32),
+                "internvl2-2b": {}, "seamless-m4t-large-v2": {}}
+
+
+def _family_run(model, toks, embeds, use_kernel):
+    """Prefill, then three decode steps with a per-slot pos (one slot
+    five tokens behind): the logits of each."""
+    cfg = model.cfg
+    max_len = 48 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    logits, cache = model.prefill(toks, max_len=max_len, embeds=embeds,
+                                  use_kernel=use_kernel)
+    out = [logits]
+    s = int(cache["pos"])
+    cache["pos"] = torch.tensor([s, s - 5], dtype=torch.int32,
+                                device=toks.device)
+    for _ in range(3):
+        logits, cache = model.decode_step(cache, toks[:, -1:],
+                                          use_kernel=use_kernel)
+        out.append(logits)
+    return out
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_SMOKE))
+def test_hybrid_vlm_and_encdec_models_go_through_the_kernels(cuda_device,
+                                                            arch):
+    """Zamba2, InternVL2 (with patch embeddings) and Seamless (over frame
+    embeddings) smoke models at float32: each prefill launches B4 once a
+    Mamba2 layer and B2 once a shared-block use (Zamba2), B2 once a layer
+    (InternVL2), once an encoder and once a decoder layer (Seamless);
+    each decode step launches B3 once an attention; the kernel path
+    agrees with the plain path to the kernels' float32 bound."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                              **FAMILY_SMOKE[arch])
+    model = Model(cfg, device=cuda_device, seed=0)
+    rng = np.random.default_rng(2)
+    toks = torch.tensor(rng.integers(0, 1000, (2, 40)), device=cuda_device)
+    embeds = None
+    if cfg.frontend != "none":
+        embeds = torch.tensor(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)) * 0.02,
+            dtype=torch.float32, device=cuda_device)
+    for k in (fa_ops.KERNEL, dec_ops.KERNEL, ssd_ops.KERNEL):
+        k.launches = 0
+    got = _family_run(model, toks, embeds, True)
+    launches = (fa_ops.KERNEL.launches, dec_ops.KERNEL.launches,
+                ssd_ops.KERNEL.launches)
+    want = _family_run(model, toks, embeds, False)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    if cfg.family == "hybrid":
+        uses = cfg.num_hybrid_groups
+        assert launches == (uses, 3 * uses, cfg.num_layers)
+    else:
+        prefill = cfg.num_layers + cfg.encoder_layers
+        assert launches == (prefill, 3 * cfg.num_layers, 0)
+
+
+def test_vision_engine_on_cuda_matches_cpu(cuda_device):
+    """Same weights, same prompts: the engine on the card serves
+    InternVL2 (text only) with the CPU engine's greedy tokens at
+    float32."""
+    cfg = dataclasses.replace(get_smoke_config("internvl2-2b"),
+                              dtype="float32")
     on_cpu = Model(cfg, device="cpu", seed=0)
     on_gpu = Model(cfg, device=cuda_device, seed=0)
     on_gpu.load_state_dict(on_cpu.state_dict())

@@ -11,7 +11,11 @@ CPU the Mamba2 prefill's scan is `mamba2.ssd_chunked`, what the
 reference's model computes; its CUDA kernel is held on the card
 (`tests/test_torch_cuda.py`). The mixture-of-experts models
 (granite-moe-3b-a800m, mixtral-8x22b) and MLA (minicpm3-4b, with
-`mla_absorb` off and on) are held the same way.
+`mla_absorb` off and on) are held the same way, and so are the hybrid
+(zamba2-7b: Mamba2 layers and a shared attention block), the vision
+frontend (internvl2-2b, with and without patch embeddings) and the
+encoder-decoder (seamless-m4t-large-v2, over frame embeddings), every
+cache tensor the reference keeps included.
 """
 from __future__ import annotations
 
@@ -42,9 +46,33 @@ MOE_MLA_CASES = {"granite-moe-3b-a800m": ("granite-moe-3b-a800m", {}),
                  "mixtral-8x22b": ("mixtral-8x22b", {}),
                  "minicpm3-4b": ("minicpm3-4b", {}),
                  "minicpm3-4b-absorb": ("minicpm3-4b", {"mla_absorb": True})}
-UNPORTED = {"zamba2-7b": "hybrid family",
-            "seamless-m4t-large-v2": "encoder-decoder",
-            "internvl2-2b": "vision frontend"}
+# the hybrid, vision-frontend and encoder-decoder families
+FAMILIES = ["zamba2-7b", "internvl2-2b", "seamless-m4t-large-v2"]
+
+
+def _embeds(cfg, batch: int, seed: int = 7) -> np.ndarray | None:
+    """A frontend's embeddings (batch, frontend_tokens, d_model), normal at
+    the embedding table's std, or None for a model without a frontend."""
+    if cfg.frontend == "none":
+        return None
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((batch, cfg.frontend_tokens, cfg.d_model))
+            * 0.02).astype(np.float32)
+
+
+def _leaves(cache, prefix=()):
+    """(path, tensor) of every tensor of a nested cache, "pos" included."""
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, prefix + (key,))
+        elif val is not None:
+            yield prefix + (key,), val
+
+
+def _at(cache, path):
+    for key in path:
+        cache = cache[key]
+    return cache
 
 
 def _np(x) -> np.ndarray:
@@ -239,6 +267,71 @@ class TestLogitsMatchReference:
         np.testing.assert_array_equal(cache["pos"].numpy(),
                                       np.asarray(ref_cache["pos"]))
 
+    @pytest.mark.parametrize("arch", FAMILIES)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_hybrid_vlm_and_encdec(self, arch, dtype):
+        """Zamba2, InternVL2 (with its patch embeddings) and Seamless (over
+        its frame embeddings): prefill logits and every cache tensor the
+        reference keeps (the hybrid's groups and tail, the encoder
+        memory's keys and values), then four decode steps with a
+        per-slot pos (one slot five tokens behind the other), all at
+        `BOUNDS`."""
+        ref, params, port = _pair(arch, dtype)
+        cfg = port.cfg
+        vocab = cfg.vocab_size
+        rng = np.random.default_rng(4)
+        toks = rng.integers(0, vocab, (2, 12))
+        emb = _embeds(cfg, 2)
+        max_len = 20 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+        ref_logits, ref_cache = ref.prefill(
+            params, jnp.asarray(toks, jnp.int32),
+            None if emb is None else jnp.asarray(emb), max_len=max_len)
+        logits, cache = port.prefill(
+            torch.from_numpy(toks), max_len=max_len,
+            embeds=None if emb is None else torch.from_numpy(emb))
+        np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                   _np(ref_logits)[..., :vocab],
+                                   **BOUNDS[dtype])
+        ref_leaves = dict(_leaves(ref_cache))
+        assert {path for path, _ in _leaves(cache)} == set(ref_leaves)
+        for path, want in ref_leaves.items():
+            got = _at(cache, path)
+            assert tuple(got.shape) == tuple(want.shape), path
+            np.testing.assert_allclose(_np(got), _np(want), **BOUNDS[dtype],
+                                       err_msg=str(path))
+        s = int(ref_cache["pos"])
+        ref_cache["pos"] = jnp.asarray([s, s - 5], jnp.int32)
+        cache["pos"] = torch.tensor([s, s - 5], dtype=torch.int32)
+        for _ in range(4):
+            tok = rng.integers(0, vocab, (2, 1))
+            ref_logits, ref_cache = ref.decode_step(
+                params, ref_cache, jnp.asarray(tok, jnp.int32))
+            logits, cache = port.decode_step(cache, torch.from_numpy(tok))
+            np.testing.assert_allclose(_np(logits)[..., :vocab],
+                                       _np(ref_logits)[..., :vocab],
+                                       **BOUNDS[dtype])
+        np.testing.assert_array_equal(cache["pos"].numpy(),
+                                      np.asarray(ref_cache["pos"]))
+        for path, want in _leaves(ref_cache):
+            np.testing.assert_allclose(_np(_at(cache, path)), _np(want),
+                                       **BOUNDS[dtype], err_msg=str(path))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_vision_model_reads_text_alone(self, dtype):
+        """InternVL2 without patch embeddings, as the engine prefills it:
+        the token embeddings alone, positions from 0."""
+        ref, params, port = _pair("internvl2-2b", dtype)
+        toks = np.random.default_rng(9).integers(0, 1000, (2, 10))
+        ref_logits, ref_cache = ref.prefill(
+            params, jnp.asarray(toks, jnp.int32), None, max_len=16)
+        logits, cache = port.prefill(torch.from_numpy(toks), max_len=16)
+        assert int(cache["pos"]) == int(ref_cache["pos"]) == 10
+        np.testing.assert_allclose(_np(logits)[..., :1000],
+                                   _np(ref_logits)[..., :1000],
+                                   **BOUNDS[dtype])
+        np.testing.assert_allclose(_np(cache["k"]), _np(ref_cache["k"]),
+                                   **BOUNDS[dtype])
+
     @pytest.mark.parametrize("ring", [False, True], ids=["window", "ring"])
     def test_sliding_window(self, ring):
         """A window of 8 over 12 prompt tokens and 6 decode steps, as a
@@ -261,13 +354,15 @@ class TestLogitsMatchReference:
             logits, cache = port.decode_step(cache, torch.from_numpy(tok))
 
 
-@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b"] + MOE_MLA)
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-2.7b"] + MOE_MLA
+                         + FAMILIES)
 def test_decode_matches_prefill(arch):
     """`tests/test_models.py::test_decode_matches_prefill` on the port:
     decoding token t with the cache of tokens [0..t) reproduces the
     full-prefill logits at t (the smoke configs are bfloat16). As there,
     MoE's capacity drops depend on the sequence length, so its capacity
-    factor is raised to the expert count, where none drop."""
+    factor is raised to the expert count, where none drop. A frontend's
+    embeddings go into both prefills alike."""
     cfg = get_smoke_config(arch)
     if cfg.num_experts:
         cfg = dataclasses.replace(
@@ -275,18 +370,67 @@ def test_decode_matches_prefill(arch):
     model = Model(cfg, device="cpu", seed=2)
     tokens = torch.from_numpy(
         np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)))
-    full_logits, _ = model.prefill(tokens, max_len=16)
-    _, cache = model.prefill(tokens[:, :12], max_len=16)
+    emb = _embeds(cfg, 2)
+    emb = None if emb is None else torch.from_numpy(emb)
+    max_len = 16 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    full_logits, _ = model.prefill(tokens, max_len=max_len, embeds=emb)
+    _, cache = model.prefill(tokens[:, :12], max_len=max_len, embeds=emb)
     for i in range(12, 16):
         logits, cache = model.decode_step(cache, tokens[:, i:i + 1])
     np.testing.assert_allclose(_np(logits[:, 0]), _np(full_logits[:, 0]),
                                rtol=0.08, atol=0.15)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_other_families_are_not_ported(arch):
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        Model(get_smoke_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "minicpm3-4b"]
+                         + FAMILIES)
+def test_cache_batch_dim(arch):
+    """`Model.cache_batch_dim` names the axis on which the caches of
+    single sequences stack into the cache of their batch: the only axis
+    where `empty_cache` of 1 and of 3 sequences differ, and the one on
+    which two prefills of one sequence each equal a prefill of both."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = Model(cfg, device="cpu", seed=3)
+    one, three = model.empty_cache(1, 8), model.empty_cache(3, 8)
+    for path, t in _leaves(one):
+        dim = model.cache_batch_dim(path[0])
+        want = list(t.shape)
+        want[dim] = 3
+        assert list(_at(three, path).shape) == want, path
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 6)))
+    emb = _embeds(cfg, 2)
+    emb = None if emb is None else torch.from_numpy(emb)
+    max_len = 8 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    _, both = model.prefill(tokens, max_len=max_len, embeds=emb)
+    singles = [model.prefill(tokens[i:i + 1], max_len=max_len,
+                             embeds=None if emb is None else emb[i:i + 1])[1]
+               for i in range(2)]
+    for path, t in _leaves(both):
+        if path == ("pos",):
+            continue
+        stacked = torch.cat([_at(c, path) for c in singles],
+                            dim=model.cache_batch_dim(path[0]))
+        np.testing.assert_allclose(_np(stacked), _np(t), **BOUNDS["float32"],
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "seamless-m4t-large-v2"])
+def test_engine_refuses_hybrid_and_encdec(arch):
+    """The model runs them; the engine refuses them, in the reference's
+    words (`repro.serving.engine`): drive them through `Model`."""
+    from repro_torch.serving.engine import InferenceEngine
+    model = Model(get_smoke_config(arch), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"engine batching supports decoder-only "
+                             r"families \(dense/moe/vlm/ssm\); use "
+                             r"Model.decode_step directly"):
+        InferenceEngine(model, max_batch=2, max_len=16)
+
+
+def test_encdec_prefill_needs_frame_embeddings():
+    model = Model(get_smoke_config("seamless-m4t-large-v2"), device="cpu")
+    with pytest.raises(ValueError, match="frame embeddings"):
+        model.prefill(torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_state_dict_names_match_params_from_jax():
@@ -321,7 +465,28 @@ def test_moe_and_mla_state_dict_names_match_params_from_jax(arch):
         assert "kv_down" in model.layers[0].attn
 
 
-@pytest.mark.parametrize("arch", MOE_MLA)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_hybrid_vlm_and_encdec_state_dict_names_match_params_from_jax(arch):
+    """The hybrid's Mamba2 layers and `shared` block, InternVL2's decoder
+    and Seamless's decoder (`ln_x`, `xattn`), `enc_layers` and
+    `enc_final_ln` convert name for name, shape for shape and dtype for
+    dtype."""
+    cfg = get_smoke_config(arch)
+    params = RefModel(cfg).init(jax.random.key(0))
+    state = params_from_jax(cfg, jax.tree.map(np.asarray, params))
+    model = Model(cfg, device="cpu")
+    assert state.keys() == model.state_dict().keys()
+    for name, t in model.state_dict().items():
+        assert state[name].shape == t.shape, name
+        assert state[name].dtype == t.dtype, name
+    if cfg.family == "hybrid":
+        assert "shared.attn.wq" in state and "layers.0.w_z" in state
+    if cfg.is_encdec:
+        assert f"enc_layers.{cfg.encoder_layers - 1}.mlp.w_up" in state
+        assert "layers.0.xattn.wk" in state and "enc_final_ln" in state
+
+
+@pytest.mark.parametrize("arch", MOE_MLA + FAMILIES)
 def test_full_moe_and_mla_configs_are_ported(arch, monkeypatch):
     """The full configs pass the port's check (mixtral-8x22b's 281 GB
     fit no single card: it is held at its smoke size) and, without a
@@ -414,6 +579,24 @@ class TestMamba2:
             np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 6)))
         _, cache = model.prefill(tokens[:, :prompt])
         assert cache["conv"].shape[2] == cfg.ssm_conv_width - 1
+        for i in range(prompt, 6):
+            logits, cache = model.decode_step(cache, tokens[:, i:i + 1])
+            full, _ = model.prefill(tokens[:, :i + 1])
+            np.testing.assert_allclose(_np(logits[:, 0]), _np(full[:, 0]),
+                                       rtol=0.08, atol=0.15)
+
+    @pytest.mark.parametrize("prompt", [1, 2])
+    def test_hybrid_short_prompt_then_decode(self, prompt):
+        """Zamba2 after a prompt shorter than the conv window: its Mamba2
+        layers keep W - 1 rows of history, zero-padded (ROADMAP R6), and
+        decoding reproduces the port's own full-prefill logits."""
+        cfg = get_smoke_config("zamba2-7b")
+        model = Model(cfg, device="cpu", seed=2)
+        tokens = torch.from_numpy(
+            np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 6)))
+        _, cache = model.prefill(tokens[:, :prompt], max_len=6)
+        assert cache["ssm"]["conv"].shape[3] == cfg.ssm_conv_width - 1
+        assert cache["tail"]["conv"].shape[2] == cfg.ssm_conv_width - 1
         for i in range(prompt, 6):
             logits, cache = model.decode_step(cache, tokens[:, i:i + 1])
             full, _ = model.prefill(tokens[:, :i + 1])

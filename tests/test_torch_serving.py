@@ -1,7 +1,9 @@
 """Serving engine of the port (`repro_torch.serving.engine`) against the
 reference, on the CPU, on the float32 smoke configs of llama3-8b,
-mamba2-2.7b, granite-moe-3b-a800m (mixture of experts) and minicpm3-4b
-(MLA: a latent cache per slot) with the reference's parameters
+mamba2-2.7b, granite-moe-3b-a800m (mixture of experts), minicpm3-4b
+(MLA: a latent cache per slot) and internvl2-2b (the vision frontend,
+served text only, as the reference's engine serves it) with the
+reference's parameters
 (`params_from_jax`) and a fake clock.
 
 - The port engine's greedy tokens equal the reference model's sequential
@@ -59,7 +61,8 @@ CASES = {
                [3, 6, 4, 5, 3]),
 }
 
-ARCHS = ("llama3-8b", "mamba2-2.7b", "granite-moe-3b-a800m", "minicpm3-4b")
+ARCHS = ("llama3-8b", "mamba2-2.7b", "granite-moe-3b-a800m", "minicpm3-4b",
+         "internvl2-2b")
 MOE_MLA = ("granite-moe-3b-a800m", "minicpm3-4b")
 
 _CHILD = r'''
@@ -324,6 +327,42 @@ class TestMoeAndMla:
     @pytest.mark.parametrize("arch", MOE_MLA)
     def test_serve_cli_on_cpu(self, capsys, arch):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--requests", "3", "--new-tokens", "3"])
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0].startswith("served 3 requests / 9 tokens")
+        assert lines[1].startswith("host CPU [proposed]: cores_active=")
+
+
+@pytest.fixture(scope="module")
+def vlm_models():
+    """(port model, (reference model, params)) of internvl2-2b."""
+    ref = _ref_pair("internvl2-2b")
+    return _port("internvl2-2b", ref[1]), ref
+
+
+class TestVisionFrontend:
+    """The same engine serving internvl2-2b: text only, no patch
+    embeddings, as the reference's engine prefills it."""
+
+    def test_tokens_equal_reference_sequential_decode(self, vlm_models):
+        outputs, wants = _sequential(*vlm_models)
+        assert outputs == wants
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_tokens_equal_reference_engine(self, vlm_models, reference,
+                                           case):
+        _, outputs = _serve(vlm_models[0], *CASES[case])
+        assert outputs == reference["internvl2-2b"][case]["outputs"]
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_host_cpu_report_equals_reference(self, vlm_models, reference,
+                                              case):
+        eng, _ = _serve(vlm_models[0], *CASES[case])
+        report = json.loads(json.dumps(eng.host_cpu_report()))
+        assert report == reference["internvl2-2b"][case]["report"]
+
+    def test_serve_cli_on_cpu(self, capsys):
+        serve.main(["--arch", "internvl2-2b", "--smoke", "--device", "cpu",
                     "--requests", "3", "--new-tokens", "3"])
         lines = capsys.readouterr().out.strip().splitlines()
         assert lines[0].startswith("served 3 requests / 9 tokens")
