@@ -167,10 +167,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    floor of its own: the plain path with the frames perturbed
    (`_hold_memory`).
 
-Phases 3, 3b, 3c, 3d and each serving run set every kernel's launch count
-to 0 just before each main run and read them all just after: a kernel of
-the path must have run exactly as often as the path calls it, and no
-other kernel at all.
+11. Training (`[train]`), which launches no kernel: no Pallas kernel has
+   a backward, so the training forward is the plain math, in the port as
+   in the reference. Each family's smoke config in float32 (Llama,
+   Mamba2, Granite-MoE, MiniCPM3, Zamba2, InternVL2 with zero patch
+   embeddings, Seamless with seeded frames): the card's `Model.loss` and
+   every gradient against the port's CPU result for the same weights and
+   batch, at the CPU tests' float32 bound. The smoke Llama (bfloat16)
+   trained 20 steps on the card and again with a checkpoint through the
+   trainer's store at step 10, restored into a new model: the same
+   losses. Then Llama-3-8B at its published widths with 16 of its 32
+   layers (4.55 B parameters: bfloat16 params and grads and float32
+   moments fill 54.5 GB; all 32 layers would need 96.4 GB), 20 steps of
+   8 x 512 tokens of `SyntheticTokens` (seed 0) through `make_train_step`
+   at the trainer's defaults: the loss must fall (mean of the last 5
+   steps below the first 5); the checkpoint's trees taken at step 10 in
+   the reference's layout (host memory), put back after step 20, and the
+   steps run again to the same losses and grad norms; step 1's bfloat16
+   loss and grad norm held against float32 on the same weights within
+   noise floors measured in the same run (`TRAIN_GRAD_BIAS`); step time,
+   tok/s and peak memory printed beside the card's name and power limit.
+
+Phases 3, 3b, 3c, 3d, each serving run and each training run set every
+kernel's launch count to 0 just before each main run and read them all
+just after: a kernel of the path must have run exactly as often as the
+path calls it, and no other kernel at all.
 
 The last two lines are one JSON object per kernel and the device line.
 Without CUDA, or without `src/repro_torch` beside this file, it prints
@@ -406,6 +427,47 @@ F32_RTOL, F32_ATOL = 1e-3, 1e-3
 ROUTE_FLIP_MAX = 1e-3
 F32_REQUESTS = 2
 NOISE_REL = 2.0 ** -9
+# Phase 11 [train]. First each family's smoke config in float32, the
+# card's `Model.loss` and every gradient held against the port's own CPU
+# result for the same weights and batch at tests/test_torch_models.py's
+# float32 bounds (the CPU path is held against JAX by the CPU tests).
+# Then Llama-3-8B at its published widths with TRAIN_LAYERS of its 32
+# layers (bfloat16 params and grads, float32 moments: 12 bytes a
+# parameter, 54.5 GB for 4.54 B; all 32 would need 96.4 GB), trained
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens through
+# `make_train_step` on `SyntheticTokens` (seed 0), at the trainer's
+# defaults (lr 1e-3, warmup min(20, steps)).
+TRAIN_FAMILIES = ("llama3-8b", "mamba2-2.7b", "granite-moe-3b-a800m",
+                  "minicpm3-4b", "zamba2-7b", "internvl2-2b",
+                  "seamless-m4t-large-v2")
+TRAIN_F32 = dict(rtol=1e-4, atol=1e-4)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 8, 512, 20
+# the checkpoint's trees taken after this step, restored, and run again
+# to the end: the resumed losses and grad norms equal the uninterrupted
+# ones at TRAIN_F32 (not bit for bit: the embedding's backward
+# accumulates with atomics on CUDA). At full width the trees (45 GB in
+# the reference's layout) stay in host memory: the store writes some 0.5
+# GB/s and reads 0.3 GB/s on the card's host (benchmarks_torch/
+# store_rate.py), four minutes for them. The store's files take the same
+# trees, which `train_store_resume` writes and reads on the card with
+# the smoke Llama.
+TRAIN_SAVE_AT = 10
+# the bfloat16 hold of step 1: its loss and grad norm against the same
+# weights in float32 on the card, relative. The loss must lie within its
+# noise floor: the largest relative move of the bfloat16 loss when every
+# weight is perturbed by relative Gaussian noise of NOISE_REL (one draw
+# per seed; the loss averages over 4,096 tokens, which washes out noise
+# put into the embedding table alone, so unlike the serving holds every
+# weight takes it). The grad norm must lie within its own such floor plus
+# TRAIN_GRAD_BIAS: bfloat16 shrinks the whole backward signal alike (2.4e-3
+# of the grad norm at 8 layers of d_model 1,024, every parameter group
+# within 2.1e-3 to 2.6e-3 but final_ln: benchmarks_torch/
+# bf16_grad_bias.py), as the reference's bfloat16 does
+# (tests/test_torch_training.py pins the port's bfloat16 grad norm to the
+# reference's), a bias that weight noise does not make (PERF.md §6);
+# it may reach one unit roundoff of bfloat16.
+TRAIN_NOISE_SEEDS = (1, 2, 3)
+TRAIN_GRAD_BIAS = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -1676,28 +1738,40 @@ def phase_direct(torch, np, serve, kernels, expected, frame_seed=None):
     return launches
 
 
-def _teacher_forced(torch, model, prompt, tokens, use_kernel, embeds=None):
-    """The model's logits (vocab only, float32) at every step of one
-    request: its prompt (behind its frontend's `embeds`, if given)
-    through `prefill`, then the engine's tokens one by one through
-    `decode_step`."""
+def _teacher_forced(torch, model, prompts, tokens, use_kernel, embeds=None):
+    """The model's logits (vocab only, float32) at every step of each
+    request: each prompt (behind its frontend's `embeds`, if given)
+    through `prefill` alone, then the engine's tokens through
+    `decode_step`, the requests together (their caches stacked, a
+    per-slot pos; one request keeps its own cache). Returns one (steps,
+    vocab) tensor a request."""
     vocab = model.cfg.vocab_size
-    toks = torch.tensor([prompt], device="cuda")
-    front = embeds.shape[1] if embeds is not None \
-        and model.cfg.family == "vlm" else 0
-    logits, cache = model.prefill(
-        toks, max_len=front + len(prompt) + len(tokens), embeds=embeds,
-        use_kernel=use_kernel)
-    steps = [logits[0, -1, :vocab].float()]
-    for tok in tokens[:-1]:
-        logits, cache = model.decode_step(
-            cache, torch.tensor([[tok]], device="cuda"),
-            use_kernel=use_kernel)
-        steps.append(logits[0, -1, :vocab].float())
-    out = torch.stack(steps)
+    embeds = embeds or [None] * len(prompts)
+    n_new = len(tokens[0])
+    if any(len(t) != n_new for t in tokens):
+        raise AssertionError("requests of unequal token counts")
+    front = [e.shape[1] if e is not None and model.cfg.family == "vlm"
+             else 0 for e in embeds]
+    max_len = max(f + len(p) for f, p in zip(front, prompts)) + n_new
+    caches, first = [], []
+    for prompt, emb in zip(prompts, embeds):
+        logits, cache = model.prefill(
+            torch.tensor([prompt], device="cuda"), max_len=max_len,
+            embeds=emb, use_kernel=use_kernel)
+        caches.append(cache)
+        first.append(logits[0, -1, :vocab].float())
+    cache = caches[0] if len(caches) == 1 else _stack_caches(torch, model,
+                                                            caches)
+    del caches
+    steps = [torch.stack(first)]
+    for i in range(n_new - 1):
+        tok = torch.tensor([[t[i]] for t in tokens], device="cuda")
+        logits, cache = model.decode_step(cache, tok, use_kernel=use_kernel)
+        steps.append(logits[:, -1, :vocab].float())
+    out = torch.stack(steps, dim=1)
     if not torch.isfinite(out).all():
         raise AssertionError("logits are not finite")
-    return out
+    return list(out)
 
 
 def _rel_l2(a, b):
@@ -1743,11 +1817,12 @@ class _Routes:
         self.moe._route = self.real
 
 
-def _routed(torch, model, prompt, tokens, use_kernel, replay=None,
+def _routed(torch, model, prompts, tokens, use_kernel, replay=None,
             embeds=None):
-    """`_teacher_forced` under `_Routes`: (logits, the routes taken)."""
+    """`_teacher_forced` under `_Routes`: (logits of each request, the
+    routes taken)."""
     with _Routes(torch, replay) as routes:
-        out = _teacher_forced(torch, model, prompt, tokens, use_kernel,
+        out = _teacher_forced(torch, model, prompts, tokens, use_kernel,
                               embeds)
     return out, routes.calls
 
@@ -1765,27 +1840,28 @@ def _hold_bf16(torch, model, prompts, tokens, tag, embeds=None):
     to a floor near a quarter of the logits' norm, the floor of the
     token table alone is measured and printed beside it; it is not held,
     since it leaves out the encoder, whose path `_hold_memory` holds
-    against a floor of its own."""
+    against a floor of its own. Each pass decodes the requests together
+    (`_teacher_forced`)."""
     t0 = time.perf_counter()
     moe_model = bool(model.cfg.num_experts)
     kernel_d, noise_d, max_err, flips, steps = 0.0, 0.0, 0.0, 0, 0
     routes, route_flips = 0, 0
-    plains, plain_routes = [], []
     embeds = embeds or [None] * len(prompts)
-    for prompt, toks, emb in zip(prompts, tokens, embeds):
-        p, taken = _routed(torch, model, prompt, toks, False, embeds=emb)
-        k, own = _routed(torch, model, prompt, toks, True,
-                         replay=taken if moe_model else None, embeds=emb)
-        if moe_model:
-            r, f, _ = _route_flips(torch, own, taken, model.cfg.num_layers)
-            routes, route_flips = routes + r, route_flips + f
+    plains, taken = _routed(torch, model, prompts, tokens, False,
+                            embeds=embeds)
+    kernels, own = _routed(torch, model, prompts, tokens, True,
+                           replay=taken if moe_model else None,
+                           embeds=embeds)
+    if moe_model:
+        routes, route_flips, _ = _route_flips(torch, own, taken,
+                                              model.cfg.num_layers)
+    for toks, p, k in zip(tokens, plains, kernels):
         kernel_d = max(kernel_d, _rel_l2(k, p))
         max_err = max(max_err, float((k - p).abs().max()))
         flips += int((p.argmax(-1) != torch.tensor(toks, device="cuda"))
                      .sum())
         steps += len(toks)
-        plains.append(p)
-        plain_routes.append(taken if moe_model else None)
+    del kernels
 
     def floor(frontend):
         """The noisy plain path's distance from the plain path: the
@@ -1798,19 +1874,16 @@ def _hold_bf16(torch, model, prompts, tokens, tag, embeds=None):
             table.dtype)
         del noise
         gen = torch.Generator("cuda").manual_seed(2)
-        dist = 0.0
+        noisy_embeds = [emb * (1 + NOISE_REL * torch.randn(
+            emb.shape, generator=gen, device="cuda"))
+            if emb is not None and frontend else emb for emb in embeds]
         try:
-            for prompt, toks, p, taken, emb in zip(prompts, tokens, plains,
-                                                   plain_routes, embeds):
-                if emb is not None and frontend:
-                    emb = emb * (1 + NOISE_REL * torch.randn(
-                        emb.shape, generator=gen, device="cuda"))
-                noisy, _ = _routed(torch, model, prompt, toks, False,
-                                   replay=taken, embeds=emb)
-                dist = max(dist, _rel_l2(noisy, p))
+            noisy, _ = _routed(torch, model, prompts, tokens, False,
+                               replay=taken if moe_model else None,
+                               embeds=noisy_embeds)
         finally:
             model.embed.data = table
-        return dist
+        return max(_rel_l2(n, p) for n, p in zip(noisy, plains))
 
     noise_d = floor(True)
     table_only = ""
@@ -1904,8 +1977,10 @@ def _hold_f32(torch, cfg, prompts, tokens, tag, embeds=None):
     embeds = embeds or [None] * len(prompts)
     for prompt, toks, emb in list(zip(prompts, tokens,
                                       embeds))[:F32_REQUESTS]:
-        k, on_kernel = _routed(torch, model, prompt, toks, True, embeds=emb)
-        p, on_plain = _routed(torch, model, prompt, toks, False, embeds=emb)
+        (k,), on_kernel = _routed(torch, model, [prompt], [toks], True,
+                                  embeds=[emb])
+        (p,), on_plain = _routed(torch, model, [prompt], [toks], False,
+                                 embeds=[emb])
         diff = (k - p).abs()
         margin = (diff - F32_ATOL - F32_RTOL * p.abs()).amax(-1)
         agree = torch.ones(len(toks), dtype=torch.bool, device=k.device)
@@ -1944,6 +2019,304 @@ def _hold_f32(torch, cfg, prompts, tokens, tag, embeds=None):
     if worst > 0:
         raise AssertionError(f"float32 kernel path leaves the bound "
                              f"(worst margin {worst:.3e})")
+
+
+def _train_batch(np, cfg, seed):
+    """A seeded batch of 2 x 32 tokens of `cfg`'s smoke model, with zero
+    patch embeddings (a vlm) or seeded frame embeddings (an
+    encoder-decoder)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32))}
+    shape = (2, cfg.frontend_tokens, cfg.d_model)
+    if cfg.is_encdec:
+        batch["embeds"] = (rng.standard_normal(shape) * 0.02).astype(
+            np.float32)
+    elif cfg.frontend != "none":
+        batch["embeds"] = np.zeros(shape, np.float32)
+    return batch
+
+
+def _loss_and_grads(torch, model, batch):
+    """(loss, {name: grad}) of one `Model.loss` and its backward pass;
+    the grads are taken off the params."""
+    model.requires_grad_(True)
+    loss = model.loss(batch)
+    loss.backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        grads[name], p.grad = p.grad, None
+    return loss.detach(), grads
+
+
+def train_f32_hold(torch, np, kernels):
+    """Each family's smoke config in float32: the card's loss and every
+    gradient against the port's CPU result for the same weights and
+    batch, at TRAIN_F32; no kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    zero_launches(kernels)
+    worst, max_err, n_grads = -math.inf, 0.0, 0
+    for i, arch in enumerate(TRAIN_FAMILIES):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        batch = _train_batch(np, cfg, i)
+        cpu = Model(cfg, device="cpu", seed=0)
+        card = Model(cfg, device="cuda", seed=0)
+        card.load_state_dict(cpu.state_dict())
+        want, want_g = _loss_and_grads(torch, cpu, batch)
+        got, got_g = _loss_and_grads(torch, card, batch)
+        pairs = [(got.cpu(), want)] + [(got_g[n].cpu(), g)
+                                       for n, g in want_g.items()]
+        for a, b in pairs:
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"[train] {arch}: not finite")
+            diff = (a - b).abs()
+            max_err = max(max_err, float(diff.max()))
+            worst = max(worst, float((diff - TRAIN_F32["atol"]
+                                      - TRAIN_F32["rtol"] * b.abs()).max()))
+        n_grads += len(want_g)
+        log(f"[train] {arch} smoke, float32: loss card {got.item():.6f} "
+            f"cpu {want.item():.6f}")
+    launches = read_launches(kernels)
+    log(f"[train] float32 smoke models, loss and {n_grads} gradients of "
+        f"{len(TRAIN_FAMILIES)} families, card vs CPU: max |diff| "
+        f"{max_err:.3e}, worst margin {worst:.3e} (bound "
+        f"{TRAIN_F32['atol']} + {TRAIN_F32['rtol']} |cpu|) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    _check_launches("[train] smoke models", launches,
+                    {name: 0 for name in launches})
+    if worst > 0:
+        raise AssertionError(f"[train] card and CPU differ beyond the "
+                             f"float32 bound (worst margin {worst:.3e})")
+
+
+def train_store_resume(torch, np, kernels):
+    """The smoke Llama (bfloat16) on the card: TRAIN_SAVE_AT steps, a
+    checkpoint through the trainer's `save_checkpoint` (the store's
+    files, in the reference's layout), a new model's
+    `restore_checkpoint`, and the steps to 2 * TRAIN_SAVE_AT again: the
+    resumed losses equal the uninterrupted ones at TRAIN_F32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import (make_train_step,
+                                          restore_checkpoint,
+                                          save_checkpoint)
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as opt
+    t0 = time.perf_counter()
+    cfg = get_smoke_config("llama3-8b")
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      global_batch=4, seed=0))
+    batches = [next(data) for _ in range(2 * TRAIN_SAVE_AT)]
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=min(20, len(batches)),
+                           total_steps=len(batches))
+
+    def run(model, state, part):
+        step, losses = make_train_step(model, ocfg), []
+        for batch in part:
+            state, loss, _ = step(state, batch)
+            losses.append(loss.item())
+        return state, losses
+    zero_launches(kernels)
+    model = Model(cfg, device="cuda", seed=0)
+    _, whole = run(model, opt.init_state(dict(model.named_parameters())),
+                   batches)
+    model = Model(cfg, device="cuda", seed=0)
+    state, head = run(model, opt.init_state(dict(
+        model.named_parameters())), batches[:TRAIN_SAVE_AT])
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        save_checkpoint(ckpt, TRAIN_SAVE_AT, model, state)
+        size = sum(f.stat().st_size for f in Path(ckpt).rglob("*.npz"))
+        model = Model(cfg, device="cuda", seed=1)
+        state = restore_checkpoint(ckpt, model, opt.init_state(dict(
+            model.named_parameters())))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _, tail = run(model, state, batches[TRAIN_SAVE_AT:])
+    err = max(rel(a, b) for a, b in zip(head + tail, whole))
+    log(f"[train] smoke Llama on the card, {len(whole)} steps, a "
+        f"checkpoint through the store at step {TRAIN_SAVE_AT} ({size:,} "
+        f"bytes) restored into a new model: losses {whole[0]:.4f} -> "
+        f"{whole[-1]:.4f}, resumed run's max relative diff {err:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    _check_launches("[train] smoke Llama", read_launches(kernels),
+                    {k.name: 0 for k in kernels})
+    for a, b in zip(head + tail, whole):
+        if abs(a - b) > TRAIN_F32["atol"] + TRAIN_F32["rtol"] * abs(b):
+            raise AssertionError(f"[train] the run resumed through the "
+                                 f"store left the uninterrupted one: "
+                                 f"{a} != {b}")
+
+
+def _noise_floor(torch, model, batch, loss, gnorm):
+    """The relative moves of the bfloat16 step-1 `loss` and `gnorm` when
+    every weight is perturbed by NOISE_REL relative Gaussian noise (one
+    draw per TRAIN_NOISE_SEEDS seed); the weights are put back after."""
+    from repro_torch.training.optimizer import global_norm
+    params = list(model.parameters())
+    kept = [p.detach().clone() for p in params]
+    d_loss, d_gnorm = 0.0, 0.0
+    for seed in TRAIN_NOISE_SEEDS:
+        gen = torch.Generator("cuda").manual_seed(seed)
+        with torch.no_grad():
+            for p in params:
+                noise = torch.randn(p.shape, generator=gen, device="cuda")
+                p.copy_((p.float() * (1 + NOISE_REL * noise)).to(p.dtype))
+                del noise
+        noisy, grads = _loss_and_grads(torch, model, batch)
+        d_loss = max(d_loss, rel(noisy.item(), loss))
+        d_gnorm = max(d_gnorm, rel(global_norm(grads).item(), gnorm))
+        del grads
+        with torch.no_grad():
+            for p, k in zip(params, kept):
+                p.copy_(k)
+    del kept
+    torch.cuda.empty_cache()
+    return d_loss, d_gnorm
+
+
+def phase_train(torch, np, kernels):
+    """Phase 11: the smoke models' float32 hold (`train_f32_hold`), then
+    Llama-3-8B at full width with TRAIN_LAYERS layers trained through
+    `make_train_step`: the loss must fall, a checkpoint restored at
+    TRAIN_SAVE_AT must run on to the same losses, the bfloat16 step 1
+    must stay within its noise floors against float32 (the grad norm's
+    with TRAIN_GRAD_BIAS), and no kernel may
+    launch (the training forward is the plain math, as in the
+    reference). Returns the launches of the full-width run."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import (checkpoint_trees,
+                                          load_checkpoint_trees,
+                                          make_train_step)
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as opt
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_f32_hold(torch, np, kernels)
+    train_store_resume(torch, np, kernels)
+    tag = "[train-llama3-8b]"
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    batches = [{"tokens": torch.as_tensor(next(data)["tokens"],
+                                          device="cuda")}
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{tag} {cfg.num_layers} of the config's 32 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, FFN "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params:,} "
+        f"parameters initialised in {time.perf_counter() - t0:.2f} s; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    zero_launches(kernels)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=min(20, TRAIN_STEPS),
+                           total_steps=TRAIN_STEPS)
+    state = opt.init_state(dict(model.named_parameters()))
+    train_step = make_train_step(model, ocfg)
+    losses, gnorms, step_s = [], [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss, metrics = train_step(state, batch)
+        losses.append(loss.item())
+        gnorms.append(metrics["grad_norm"].item())
+        step_s.append(time.perf_counter() - t0)
+        if i + 1 == TRAIN_SAVE_AT:
+            t0 = time.perf_counter()
+            trees = checkpoint_trees(model, state)
+            save_s = time.perf_counter() - t0
+            size = sum(t.numel() * t.element_size() for t in (
+                *model.parameters(), *state.mu.values(), *state.nu.values()))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    state = load_checkpoint_trees(model, state, *trees)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del trees
+    resumed, resumed_g = [], []
+    for batch in batches[TRAIN_SAVE_AT:]:
+        state, loss, metrics = train_step(state, batch)
+        resumed.append(loss.item())
+        resumed_g.append(metrics["grad_norm"].item())
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    step_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"{tag} {TRAIN_STEPS} steps: losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{' '.join(f'{x:.3f}' for x in gnorms)}")
+    log(f"{tag} step {step_ms:.1f} ms (median of steps 2 to "
+        f"{TRAIN_STEPS}; the first {step_s[0] * 1e3:.1f} ms), "
+        f"{tokens / step_ms * 1e3:,.0f} tok/s, peak device memory "
+        f"{peak / 1e9:.2f} GB; the checkpoint's trees of step "
+        f"{TRAIN_SAVE_AT} ({size / 1e9:.2f} GB, host memory) taken in "
+        f"{save_s:.1f} s, put back in {restore_s:.1f} s; card: {smi}")
+    _check_launches(tag, launches, {name: 0 for name in launches})
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"{tag} the loss did not fall: mean of the "
+                             f"first 5 steps {first:.4f}, of the last 5 "
+                             f"{last:.4f}")
+    resume_err = max(
+        max(rel(a, b) for a, b in zip(resumed, losses[TRAIN_SAVE_AT:])),
+        max(rel(a, b) for a, b in zip(resumed_g, gnorms[TRAIN_SAVE_AT:])))
+    log(f"{tag} loss fell: mean of the first 5 steps {first:.4f}, of the "
+        f"last 5 {last:.4f}; resumed from step {TRAIN_SAVE_AT}: losses "
+        f"{' '.join(f'{x:.4f}' for x in resumed)}, max relative diff of "
+        f"loss and grad norm from the uninterrupted run {resume_err:.3e}")
+    for a, b in zip(resumed + resumed_g,
+                    losses[TRAIN_SAVE_AT:] + gnorms[TRAIN_SAVE_AT:]):
+        if abs(a - b) > TRAIN_F32["atol"] + TRAIN_F32["rtol"] * abs(b):
+            raise AssertionError(f"{tag} the resumed run left the "
+                                 f"uninterrupted one: {a} != {b}")
+    # the bfloat16 step 1 against float32, within its noise floor
+    del train_step, state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.requires_grad_(False)
+    t0 = time.perf_counter()
+    model.load_state_dict(Model(cfg, device="cuda", seed=0).state_dict())
+    floor = _noise_floor(torch, model, batches[0], losses[0], gnorms[0])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+                seed=0)
+    with torch.no_grad():       # the bfloat16 weights, exactly
+        for p in f32.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    loss32, grads = _loss_and_grads(torch, f32, batches[0])
+    gnorm32 = opt.global_norm(grads).item()
+    del f32, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_loss, d_gnorm = rel(losses[0], loss32.item()), rel(gnorms[0], gnorm32)
+    log(f"{tag} bfloat16 step 1 vs float32 on the same weights: loss "
+        f"{losses[0]:.6f} vs {loss32.item():.6f} (relative {d_loss:.3e}, "
+        f"noise floor {floor[0]:.3e}), grad norm {gnorms[0]:.5f} vs "
+        f"{gnorm32:.5f} ({d_gnorm:.3e}, floor {floor[1]:.3e} + bias "
+        f"{TRAIN_GRAD_BIAS:.3e}) ({time.perf_counter() - t0:.1f} s)")
+    if not (d_loss <= floor[0] and d_gnorm <= floor[1] + TRAIN_GRAD_BIAS):
+        raise AssertionError(f"{tag} bfloat16 step 1 leaves its noise "
+                             f"floor")
+    log(f"[train] phase in {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def absorbed_run(torch, kernels, serve):
@@ -2036,7 +2409,6 @@ def main() -> int:
                **phase_telemetry(torch, np, every, reqs, fleet_res,
                                  fleet_wall, event_res, event_card)}
     del reqs
-    launches["aging_update"] = sum(by_path.values())
 
     def dense(cfg, iterations):
         return {"aging_update": 0, "ssd_scan": 0,
@@ -2083,6 +2455,12 @@ def main() -> int:
     bidirectional = served["flash_attention/noncausal"]
     for name, paths in attention_by_path.items():
         paths["seamless-m4t-large-v2"] = served[name]
+    trained = phase_train(torch, np, every)
+    by_path["train-llama3-8b"] = trained["aging_update"]
+    ssd_by_path["train-llama3-8b"] = trained["ssd_scan"]
+    for name, paths in attention_by_path.items():
+        paths["train-llama3-8b"] = trained[name]
+    launches["aging_update"] = sum(by_path.values())
     for name, paths in attention_by_path.items():
         launches[name] = sum(paths.values())
     launches["ssd_scan"] = sum(ssd_by_path.values())

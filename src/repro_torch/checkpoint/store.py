@@ -13,7 +13,8 @@ written before digests existed carry no record and load as before.
 The counterpart of `repro.checkpoint.store`, without jax. A tree is
 nested dicts, lists and tuples whose leaves are numpy arrays or torch
 tensors; its keys are the ones `jax.tree_util.tree_flatten_with_path`
-gives (dict keys sorted, `#i` for sequence indices, joined by "::"), and
+gives (dict keys sorted, `.name` for the fields of a NamedTuple, `#i`
+for the indices of other sequences, joined by "::"), and
 bfloat16 is stored as its `uint16` bits, so the files of either package
 restore through the other's store. `restore` follows the template: a
 numpy leaf comes back as numpy of that leaf's dtype (no float64
@@ -34,15 +35,24 @@ import torch
 _SEP = "::"
 
 
+def _keys(seq) -> list[str]:
+    """The path keys of a sequence's entries: `.field` for a NamedTuple's
+    fields in declaration order (jax's `GetAttrKey`), else `#i`."""
+    if hasattr(seq, "_fields"):
+        return [f".{name}" for name in seq._fields]
+    return [f"#{i}" for i in range(len(seq))]
+
+
 def _leaves(tree, path=()):
     """(path, leaf) pairs in `tree_flatten_with_path`'s order: dict keys
-    sorted, sequences by index, None holding no leaf."""
+    sorted, a NamedTuple's fields by name, other sequences by index, None
+    holding no leaf."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], path + (str(k),))
     elif isinstance(tree, (list, tuple)):
-        for i, sub in enumerate(tree):
-            yield from _leaves(sub, path + (f"#{i}",))
+        for key, sub in zip(_keys(tree), tree):
+            yield from _leaves(sub, path + (key,))
     elif tree is not None:
         yield _SEP.join(path), tree
 
@@ -91,9 +101,13 @@ def _rebuild(template, data, path=()):
         return {k: _rebuild(template[k], data, path + (str(k),))
                 for k in sorted(template)}
     if isinstance(template, (list, tuple)):
-        out = [_rebuild(sub, data, path + (f"#{i}",))
-               for i, sub in enumerate(template)]
-        return out if isinstance(template, list) else type(template)(out)
+        out = [_rebuild(sub, data, path + (key,))
+               for key, sub in zip(_keys(template), template)]
+        if isinstance(template, list):
+            return out
+        if hasattr(template, "_fields"):
+            return type(template)(*out)
+        return type(template)(out)
     if template is None:
         return None
     return _restore_leaf(template, data[_SEP.join(path)])

@@ -6,7 +6,8 @@ a KV cache, and cross-attention (the counterpart of
 through the kernels' wrappers: on CUDA tensors the hand-written prefill
 kernel (`kernels/flash_attention`) and decode kernel
 (`kernels/decode_attention`), on CPU tensors or with `use_kernel=False`
-their plain versions (`ref.py`). Both keep the scores and the softmax in
+their plain versions (`ref.py`, which `self_attention` calls itself for
+`use_kernel=False`). Both keep the scores and the softmax in
 float32, as the reference's Pallas kernels and oracles do.
 
 The other functions are the reference's jnp formulations in PyTorch, in
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_bhd
 from repro_torch.kernels.flash_attention.ops import attention_bhsd
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NEG_INF = -1e30
 
@@ -70,7 +72,9 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
                    q_offset: int = 0, scale: float | None = None,
                    chunk: int = 0, use_kernel: bool = True):
     """Self-attention over a full sequence (train / prefill path), in the
-    prefill kernel on CUDA tensors, else in its plain version. `chunk` is
+    prefill kernel on CUDA tensors, else in its plain version; with
+    `use_kernel=False` the plain version on any device, at head dims the
+    kernel has no instance for too (the training forward's). `chunk` is
     the reference's switch to its online-softmax blocked formulation
     (`chunked_self_attention`); the kernel is that formulation, and both
     give the exact result, so it changes nothing here, but for one
@@ -78,6 +82,12 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bidirectional (`causal=False`) attention by `window`."""
     if not causal and not (chunk and chunk < k.shape[1]):
         window = 0
+    if not use_kernel:
+        out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window, scale=scale,
+                                  q_offset=q_offset)
+        return out.transpose(1, 2)
     return attention_bhsd(q, k, v, causal=causal, window=window,
                           scale=scale, q_offset=q_offset,
                           use_kernel=use_kernel)

@@ -50,8 +50,10 @@ reference. The attention keeps the softmax in float32, where the
 reference's jnp model path rounds its scores and probabilities to
 bfloat16, so at bfloat16 the two models agree to the reference's
 bfloat16 bound, not bit for bit. The Mamba2 decode step has no kernel, in
-the port as in the reference. The model runs on the card unless the
-caller passes `device="cpu"`.
+the port as in the reference. `loss`, the training forward, runs the
+plain math on any device (no kernel has a backward, here or in the
+reference). The model runs on the card unless the caller passes
+`device="cpu"`.
 """
 from __future__ import annotations
 
@@ -59,15 +61,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_rope, embed, rms_norm, swiglu,
-                                       unembed)
+from repro_torch.models.layers import (apply_rope, cross_entropy_loss, embed,
+                                       rms_norm, swiglu, unembed)
 
 INIT_STD = 0.02
+MOE_AUX_COEF = 0.01
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -251,9 +255,129 @@ class Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
 
-    def loss(self, batch):
-        raise NotImplementedError("training is not ported yet (ROADMAP "
-                                  "A13)")
+    # ========================= train forward ========================== #
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean next-token CE (+ MOE_AUX_COEF x the MoE aux loss), the
+        reference's train forward. batch keys: tokens (B, S_text) int,
+        and for vlm/audio `embeds` (B, frontend_tokens, D); numpy arrays
+        or tensors.
+
+        Plain PyTorch under autograd: every attention takes its plain
+        version (`use_kernel=False`) and the Mamba2 layers run
+        `mamba2.ssd_chunked`, as the reference's loss reaches no Pallas
+        kernel (none has a backward). With `cfg.remat` each layer (the
+        hybrid: each group, and each Mamba2 layer in it) is recomputed in
+        the backward pass (`torch.utils.checkpoint`), as `jax.checkpoint`
+        wraps them. Gradients reach the parameters once they require
+        them (`model.requires_grad_()`); serving runs under `no_grad`
+        either way."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        embeds = batch.get("embeds")
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds, device=self.device).to(
+                self.dtype)
+        if cfg.is_encdec:
+            if embeds is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder loss needs "
+                                 f"the frame embeddings (batch['embeds'])")
+            logits, aux = self._encdec_forward(tokens, embeds)
+            mask = torch.ones(tokens.shape, dtype=torch.float32,
+                              device=self.device)
+            return (cross_entropy_loss(logits[:, :-1], tokens[:, 1:],
+                                       mask[:, 1:])
+                    + MOE_AUX_COEF * aux)
+        h = embed(tokens, self.embed)
+        n_front = 0
+        if cfg.frontend != "none" and embeds is not None:
+            h = torch.cat([embeds, h], dim=1)
+            n_front = embeds.shape[1]
+        s_total = h.shape[1]
+        positions = torch.arange(s_total, device=self.device)[None, :]
+        h, aux = self._stack_forward(h, positions)
+        logits = self._head(h)
+        labels_full = F.pad(tokens, (n_front, 0))
+        mask = (positions >= n_front).float().expand(labels_full.shape)
+        return (cross_entropy_loss(logits[:, :-1], labels_full[:, 1:],
+                                   mask[:, 1:]) + MOE_AUX_COEF * aux)
+
+    def _remat(self, fn):
+        """`fn` recomputed in the backward pass under `cfg.remat`."""
+        if not self.cfg.remat:
+            return fn
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def _block_full(self, h, blk, positions, causal=True):
+        """A whole layer over the sequence on the plain path: (h, MoE aux
+        loss)."""
+        h, _ = self._attn_full(h, blk, positions, False, causal=causal)
+        return self._mlp_aux(h, blk)
+
+    def _stack_forward(self, h, positions):
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return self._hybrid_forward(h, positions), 0.0
+        if cfg.family == "ssm":
+            body = self._remat(lambda hh, blk: mamba2.mamba2_block(hh, blk,
+                                                                   cfg))
+            for blk in self.layers:
+                h = body(h, blk)
+            return h, 0.0
+        body = self._remat(lambda hh, blk: self._block_full(hh, blk,
+                                                            positions))
+        aux = 0.0
+        for blk in self.layers:
+            h, a = body(h, blk)
+            aux = aux + a
+        return h, aux
+
+    def _hybrid_forward(self, h, positions):
+        """Zamba2: each group of `hybrid_period` Mamba2 layers, then the
+        single SHARED attention block; the tail's Mamba2 layers last."""
+        cfg = self.cfg
+        per, g = cfg.hybrid_period, cfg.num_hybrid_groups
+        inner = self._remat(lambda hh, blk: mamba2.mamba2_block(hh, blk,
+                                                                cfg))
+
+        def group(hh, gi):
+            for blk in self.layers[gi * per:(gi + 1) * per]:
+                hh = inner(hh, blk)
+            return self._block_full(hh, self.shared, positions)[0]
+
+        group = self._remat(group)
+        for gi in range(g):
+            h = group(h, gi)
+        for blk in self.layers[g * per:]:
+            h = inner(h, blk)
+        return h
+
+    def _encdec_forward(self, tokens, embeds):
+        """Seamless: bidirectional encoder over the frame embeddings,
+        causal decoder with cross-attention. Returns (logits, aux)."""
+        cfg = self.cfg
+        enc_pos = torch.arange(embeds.shape[1], device=self.device)[None, :]
+        enc = self._remat(lambda hh, blk: self._block_full(
+            hh, blk, enc_pos, causal=False)[0])
+        henc = embeds
+        for blk in self.enc_layers:
+            henc = enc(henc, blk)
+        memory = rms_norm(henc, self.enc_final_ln, cfg.norm_eps)
+        h = embed(tokens, self.embed)
+        dec_pos = torch.arange(tokens.shape[1], device=self.device)[None, :]
+        dec = self._remat(lambda hh, blk: self._dec_block_full(
+            hh, blk, dec_pos, memory))
+        aux = 0.0
+        for blk in self.layers:
+            h, a = dec(h, blk)
+            aux = aux + a
+        return self._head(h), aux
+
+    def _dec_block_full(self, h, blk, positions, memory):
+        """A decoder layer over the sequence on the plain path: causal
+        self-attention, cross-attention on the memory, the MLP."""
+        h, _ = self._attn_full(h, blk, positions, False)
+        h = self._cross_attn(h, blk, *self._memory_kv(memory, blk))
+        return self._mlp_aux(h, blk)
 
     # ====================== attention sub-blocks ====================== #
     def _gqa_qkv(self, h, ap, positions):
@@ -328,12 +452,16 @@ class Model(nn.Module):
         return h + o @ blk.attn["wo"], kept
 
     def _mlp(self, h, blk):
+        return self._mlp_aux(h, blk)[0]
+
+    def _mlp_aux(self, h, blk):
+        """The MLP half of a layer: (h, the MoE aux loss, or 0.0)."""
         hn = rms_norm(h, blk.ln2, self.cfg.norm_eps)
         if self.cfg.num_experts:
-            y, _ = moe.moe_ffn_sharded(hn, blk.mlp, self.cfg)
-            return h + y
+            y, aux = moe.moe_ffn_sharded(hn, blk.mlp, self.cfg)
+            return h + y, aux
         return h + swiglu(hn, blk.mlp["w_gate"], blk.mlp["w_up"],
-                          blk.mlp["w_down"])
+                          blk.mlp["w_down"]), 0.0
 
     def _cross_attn(self, h, blk, xk, xv):
         """An encoder-decoder layer's cross-attention against the encoder
@@ -728,7 +856,10 @@ class Model(nn.Module):
 
 
 def _tensor(a) -> torch.Tensor:
-    """A numpy array (bfloat16 from ml_dtypes included) as a CPU tensor."""
+    """A numpy array (bfloat16 from ml_dtypes included) as a CPU tensor; a
+    tensor as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -751,7 +882,8 @@ def _flatten(prefix: str, tree: dict, index: int | None = None) -> dict:
 
 def params_from_jax(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
     """The reference's stacked parameter dict (`repro.models.Model.init`,
-    its leaves as numpy arrays) as a state dict of the port's `Model`:
+    its leaves as numpy arrays or tensors) as a state dict of the port's
+    `Model`:
     `Model(cfg, device=...).load_state_dict(params_from_jax(cfg, tree))`
     makes the port compute what the reference computes. Per-layer leaves
     are stacked on a leading axis (`layers`, `enc_layers`); the hybrid's
@@ -768,3 +900,37 @@ def params_from_jax(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
     if "shared" in tree:
         state.update(_flatten("shared.", tree["shared"]))
     return state
+
+
+def params_to_jax(cfg: ModelConfig, state: dict) -> dict:
+    """The inverse of `params_from_jax`: a state dict of the port's `Model`
+    (or anything keyed by its names, as the optimizer's moments) as the
+    reference's nested parameter tree, each `layers.<i>.` and
+    `enc_layers.<i>.` entry stacked on a leading layer axis, the rest as
+    they are. The leaves are new CPU tensors (copies); each stacked leaf
+    is stacked on its device and then copied, so a card holds one
+    stacked leaf at a time beside the model."""
+    check_supported(cfg)
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in state.items():
+        group, _, rest = name.partition(".")
+        if group in ("layers", "enc_layers"):
+            i, _, rest = rest.partition(".")
+            stacked.setdefault((group, rest), {})[int(i)] = t
+        else:
+            _put(tree, name.split("."), t.detach().to("cpu", copy=True))
+    counts = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers}
+    for (group, rest), by_index in stacked.items():
+        if sorted(by_index) != list(range(counts[group])):
+            raise ValueError(f"{cfg.name}: {group}.<i>.{rest} has layers "
+                             f"{sorted(by_index)}, not {counts[group]}")
+        _put(tree.setdefault(group, {}), rest.split("."), torch.stack(
+            [by_index[i].detach() for i in range(counts[group])]).cpu())
+    return tree
+
+
+def _put(tree: dict, path: list[str], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf

@@ -18,7 +18,9 @@ import json
 import os
 import shutil
 import warnings
+from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -167,6 +169,125 @@ class TestCrossPackage:
         opt = store.restore(str(tmp_path), {"m": torch.zeros(3)},
                             name="opt_state.npz")
         assert opt["m"].tolist() == [0.0, 1.0, 2.0]
+
+    @pytest.mark.parametrize("writer", ["port", "reference"])
+    def test_named_tuple_crosses_packages(self, tmp_path, writer):
+        """A NamedTuple's fields are keyed by name (`.step`, `.mu::w`),
+        as jax's `GetAttrKey` is, so either store restores the other's
+        file of one, field for field."""
+        state = State(torch.tensor(3, dtype=torch.int32),
+                      {"w": torch.arange(4, dtype=torch.float32)},
+                      {"w": torch.ones(4, dtype=torch.bfloat16)})
+        params = {"w": torch.zeros(4)}
+        if writer == "port":
+            store.save(str(tmp_path), 1, params, state)
+            back = ref_store.restore(str(tmp_path), _to_jax(_zeros(state)),
+                                     name="opt_state.npz")
+        else:
+            ref_store.save(str(tmp_path), 1, _to_jax(params),
+                           _to_jax(state))
+            back = store.restore(str(tmp_path), _zeros(state),
+                                 name="opt_state.npz")
+        with np.load(tmp_path / "step_00000001" / "opt_state.npz") as data:
+            assert sorted(data.files) == [".mu::w", ".nu::w", ".step"]
+        assert type(back) is State
+        _assert_equal(back, state)
+
+    @pytest.mark.parametrize("writer", ["port", "reference"])
+    def test_adamw_state_crosses_packages(self, tmp_path, writer):
+        """The smoke Llama's params and `AdamWState` after one step of
+        each package's AdamW on the same params and grads: a file written
+        by either package restores through the other's store, keys and
+        values equal."""
+        ref_params, ref_state, port_params, port_state = _adamw_pair()
+        if writer == "port":
+            store.save(str(tmp_path), 1, port_params, port_state)
+            back = ref_store.restore(str(tmp_path), ref_state,
+                                     name="opt_state.npz")
+            params = ref_store.restore(str(tmp_path), ref_params)
+        else:
+            ref_store.save(str(tmp_path), 1, ref_params, ref_state)
+            back = store.restore(str(tmp_path), _zeros(port_state),
+                                 name="opt_state.npz")
+            params = store.restore(str(tmp_path), _zeros(port_params))
+        with np.load(tmp_path / "step_00000001" / "opt_state.npz") as data:
+            keys = sorted(data.files)
+        assert keys[-1] == ".step"
+        assert ".mu::layers::attn::wq" in keys
+        assert ".nu::final_ln" in keys
+        assert keys == sorted(ref_store._flatten(ref_state))
+        assert int(back.step) == 1
+        _assert_equal(back, port_state)
+        _assert_equal(params, port_params)
+
+
+class State(NamedTuple):
+    """Shaped like the AdamW state of both packages."""
+    step: torch.Tensor
+    mu: dict
+    nu: dict
+
+
+def _to_jax(tree):
+    """A tree of tensors as one of jax arrays, NamedTuples kept."""
+    if isinstance(tree, dict):
+        return {k: _to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_jax(v) for v in tree))
+    if tree.dtype == torch.bfloat16:
+        return jnp.asarray(tree.view(torch.int16).numpy().view(
+            np.uint16)).view(jnp.bfloat16)
+    return jnp.asarray(tree.numpy())
+
+
+def _zeros(tree):
+    """`tree` with zeros of each leaf's dtype: a template to restore."""
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_zeros(v) for v in tree))
+    return torch.zeros_like(tree)
+
+
+def _assert_equal(got, want):
+    """Every leaf of `got` (either package's) equals `want`'s, bit for
+    bit, in its dtype."""
+    flat_got = (ref_store._flatten(got) if not isinstance(
+        jax.tree.leaves(got)[0], torch.Tensor) else store._flatten(got))
+    flat_want = store._flatten(want)
+    assert flat_got.keys() == flat_want.keys()
+    for key, arr in flat_want.items():
+        assert flat_got[key].dtype == arr.dtype, key
+        np.testing.assert_array_equal(flat_got[key], arr, err_msg=key)
+
+
+def _adamw_pair():
+    """(reference params, reference AdamWState, the port's both in the
+    reference's layout) of the smoke Llama (bfloat16) after one AdamW
+    step of each package on the same params and seeded grads."""
+    from repro.configs import get_smoke_config
+    from repro.models import Model as RefModel
+    from repro.training import optimizer as ref_opt
+    from repro_torch.models import params_from_jax, params_to_jax
+    from repro_torch.training import optimizer as opt
+
+    cfg = get_smoke_config("llama3-8b")
+    params = RefModel(cfg).init(jax.random.key(0))
+    rng = np.random.default_rng(0)
+    grads = jax.tree.map(lambda p: jnp.asarray(rng.standard_normal(
+        p.shape), p.dtype), params)
+    ocfg = ref_opt.AdamWConfig(warmup_steps=0)
+    ref_params, ref_state, _ = ref_opt.apply_updates(
+        params, grads, ref_opt.init_state(params), ocfg)
+    mine = params_from_jax(cfg, jax.tree.map(np.asarray, params))
+    mine = {n: t.clone() for n, t in mine.items()}
+    state = opt.init_state(mine)
+    _, state, _ = opt.apply_updates(
+        mine, params_from_jax(cfg, jax.tree.map(np.asarray, grads)), state,
+        opt.AdamWConfig(warmup_steps=0))
+    port_state = opt.AdamWState(state.step, params_to_jax(cfg, state.mu),
+                                params_to_jax(cfg, state.nu))
+    return ref_params, ref_state, params_to_jax(cfg, mine), port_state
 
 
 # ---------------------------------------------------------------------- #

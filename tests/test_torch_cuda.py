@@ -1109,3 +1109,130 @@ def test_ssd_kernel_counts_one_launch_per_call(cuda_device):
     pl = ssd_ops.plan(1, 1024, 80, 64, 128, torch.bfloat16, sms=_sms())
     assert pl.device_launches == len(phases) == 3
     assert counts == {k: 3 for k in phases}, kernels
+
+
+# ---------------------------------------------------------------------- #
+# training: the plain math under autograd on the card
+# ---------------------------------------------------------------------- #
+TRAIN_FAMILIES = ["llama3-8b", "mamba2-2.7b", "granite-moe-3b-a800m",
+                  "minicpm3-4b", "zamba2-7b", "internvl2-2b",
+                  "seamless-m4t-large-v2"]
+KERNELS = (ops.KERNEL, fa_ops.KERNEL, dec_ops.KERNEL, ssd_ops.KERNEL)
+
+
+def _train_batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24))}
+    if cfg.frontend != "none":
+        batch["embeds"] = (rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    return batch
+
+
+def _loss_grads(model, batch):
+    model.requires_grad_(True)
+    loss = model.loss(batch)
+    loss.backward()
+    return loss.detach().cpu(), {n: p.grad.cpu()
+                                 for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_loss_and_grads_on_cuda_match_cpu(cuda_device, arch):
+    """Float32, the same weights and batch: the card's loss and every
+    gradient within the CPU tests' float32 bound of the CPU's, with no
+    kernel launched (the training forward asks for the plain math)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    on_gpu = Model(cfg, device=cuda_device, seed=0)
+    on_gpu.load_state_dict(on_cpu.state_dict())
+    batch = _train_batch(cfg)
+    before = [k.launches for k in KERNELS]
+    got, got_g = _loss_grads(on_gpu, batch)
+    assert [k.launches for k in KERNELS] == before
+    want, want_g = _loss_grads(on_cpu, batch)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert got_g.keys() == want_g.keys()
+    for name in want_g:
+        torch.testing.assert_close(got_g[name], want_g[name], rtol=1e-4,
+                                   atol=1e-4, msg=name)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda_device):
+    """One `make_train_step` of the float32 smoke Llama on each device
+    from the same weights: the loss, the updated params and the first
+    moments within the float32 bound."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.training import optimizer as opt
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
+                              dtype="float32")
+    out = []
+    state_dict = Model(cfg, device="cpu", seed=0).state_dict()
+    batch = _train_batch(cfg)
+    for device in ("cpu", cuda_device):
+        model = Model(cfg, device=device, seed=0)
+        model.load_state_dict(state_dict)
+        state = opt.init_state(dict(model.named_parameters()))
+        step = make_train_step(model, opt.AdamWConfig(warmup_steps=0))
+        state, loss, metrics = step(state, batch)
+        assert int(state.step) == 1
+        out.append((loss.cpu(), {n: p.detach().cpu()
+                                 for n, p in model.named_parameters()},
+                    {n: m.cpu() for n, m in state.mu.items()}))
+    (l_cpu, p_cpu, m_cpu), (l_gpu, p_gpu, m_gpu) = out
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=1e-4)
+    for name in p_cpu:
+        torch.testing.assert_close(p_gpu[name], p_cpu[name], rtol=1e-4,
+                                   atol=1e-4, msg=name)
+        torch.testing.assert_close(m_gpu[name], m_cpu[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)
+
+
+def test_train_step_launches_no_kernel(cuda_device):
+    """A full train step (loss, backward, AdamW) of the Mamba2 and Llama
+    smoke models launches none of the four kernels."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.training import optimizer as opt
+    for arch in ("llama3-8b", "mamba2-2.7b"):
+        model = Model(get_smoke_config(arch), device=cuda_device, seed=0)
+        step = make_train_step(model, opt.AdamWConfig())
+        before = [k.launches for k in KERNELS]
+        state, loss, _ = step(opt.init_state(dict(model.named_parameters())),
+                              _train_batch(model.cfg))
+        assert bool(torch.isfinite(loss))
+        assert [k.launches for k in KERNELS] == before
+
+
+def test_train_resume_through_the_store_on_cuda(cuda_device, tmp_path):
+    """Four steps of the bfloat16 smoke Llama on the card, against two,
+    the trainer's checkpoint (the store's files), a new model's restore
+    and two more: the same losses at the float32 bound, the restored
+    step and the moments on the card."""
+    from repro_torch.launch.train import (make_train_step,
+                                          restore_checkpoint,
+                                          save_checkpoint)
+    from repro_torch.training import optimizer as opt
+    cfg = get_smoke_config("llama3-8b")
+    batches = [_train_batch(cfg, seed) for seed in range(4)]
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=4)
+
+    def run(model, state, part):
+        step, losses = make_train_step(model, ocfg), []
+        for batch in part:
+            state, loss, _ = step(state, batch)
+            losses.append(loss.item())
+        return state, losses
+    model = Model(cfg, device=cuda_device, seed=0)
+    _, whole = run(model, opt.init_state(dict(model.named_parameters())),
+                   batches)
+    model = Model(cfg, device=cuda_device, seed=0)
+    state, head = run(model, opt.init_state(dict(model.named_parameters())),
+                      batches[:2])
+    save_checkpoint(str(tmp_path), 2, model, state)
+    model = Model(cfg, device=cuda_device, seed=1)
+    state = restore_checkpoint(str(tmp_path), model, opt.init_state(dict(
+        model.named_parameters())))
+    assert int(state.step) == 2 and state.step.device.type == "cuda"
+    assert all(m.device.type == "cuda" for m in state.mu.values())
+    _, tail = run(model, state, batches[2:])
+    np.testing.assert_allclose(head + tail, whole, rtol=1e-4, atol=1e-4)

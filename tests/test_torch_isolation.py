@@ -1,8 +1,8 @@
 """The port stands alone: no module of `src/repro_torch` or
 `benchmarks_torch`, and not `chip_smoke.py`, imports `jax` or the
 reference package `repro`; and without CUDA the port's GPU entry points
-(the fleet engine, `launch.serve`, `chip_smoke.py`) refuse to run rather
-than fall back to the CPU."""
+(the fleet engine, `launch.serve`, `launch.train`, `chip_smoke.py`)
+refuse to run rather than fall back to the CPU."""
 from __future__ import annotations
 
 import ast
@@ -48,6 +48,8 @@ def test_import_leaves_reference_unloaded():
             "import repro_torch.models, repro_torch.configs, repro_torch.core;"
             "import repro_torch.serving.engine, repro_torch.launch.serve;"
             "import repro_torch.telemetry, repro_torch.checkpoint.store;"
+            "import repro_torch.launch.train, repro_torch.training.optimizer;"
+            "import repro_torch.data.pipeline;"
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -76,6 +78,20 @@ def test_serve_without_cuda_refuses():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "served" not in proc.stdout
+
+
+def test_train_without_cuda_refuses():
+    """`launch.train` runs on the card unless `--device cpu`: with no
+    CUDA it raises rather than falling back to the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3-8b", "--smoke", "--steps", "1"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "loss" not in proc.stdout
 
 
 def _run_smoke(cwd: Path, **env):

@@ -525,9 +525,34 @@ def test_default_device_without_cuda_raises(monkeypatch):
         Model(get_smoke_config("llama3-8b"))
 
 
-def test_training_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        Model(get_smoke_config("llama3-8b"), device="cpu").loss({})
+@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b"])
+def test_training_is_not_ported(arch, monkeypatch):
+    """No kernel has a backward, in the reference or in the port, so the
+    training forward is not ported to the kernels: `loss` asks each
+    attention for its plain version (`use_kernel=False`) and calls
+    neither kernel wrapper it could reach (the prefill attention's, the
+    SSD scan's). (`tests/test_torch_training.py` holds `loss` against the
+    reference.)"""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import attention
+    asked = []
+    real = attention.self_attention
+
+    def spy(*args, use_kernel=True, **kw):
+        asked.append(use_kernel)
+        return real(*args, use_kernel=use_kernel, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the training forward called a kernel's "
+                             "wrapper")
+    monkeypatch.setattr(attention, "self_attention", spy)
+    monkeypatch.setattr(attention, "attention_bhsd", refuse)
+    monkeypatch.setattr(ssd_ops, "ssd", refuse)
+    cfg = get_smoke_config(arch)
+    loss = Model(cfg, device="cpu").loss(
+        {"tokens": np.arange(24).reshape(2, 12) % cfg.vocab_size})
+    assert torch.isfinite(loss)
+    assert asked and not any(asked)
 
 
 class TestMamba2:
