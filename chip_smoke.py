@@ -188,6 +188,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    noise floors measured in the same run (`TRAIN_GRAD_BIAS`); step time,
    tok/s and peak memory printed beside the card's name and power limit.
 
+12. The distribution layer (`[distributed]`), which launches no kernel:
+   the dry run's CLI (`python -m repro_torch.launch.dryrun --arch
+   llama3-8b --shape decode_32k --mesh both`, 256 and 512 fake ranks, no
+   device) in a child process, which must print ALL DRY-RUNS PASSED; then
+   Llama-3-8B at full width (32 layers, bfloat16, seed 0) laid out over
+   `make_host_mesh()` (a (1, 1) mesh over a one-rank nccl group) by
+   `param_specs`, its cache by `cache_specs`: 4 seeded prompts of 1,024
+   tokens prefilled into a cache of 1,536 and 8 greedy decode steps on the
+   plain path, whose logits must equal the same weights' without DTensor
+   bit for bit; then the dry run's per-device count of that prefill and
+   of one decode step on a (1, 1) mesh: its FLOPs must equal
+   `FlopCounterMode`'s on the card and its peak lie within 10% of
+   `max_memory_allocated` (params and cache resident), printed beside
+   the step's time, its roofline terms (launch/mesh.py's constants) and a
+   measured bf16 GEMM rate and copy rate. The process group is destroyed
+   before the phase returns; the phase must take at most 90 s.
+
 Phases 3, 3b, 3c, 3d, each serving run and each training run set every
 kernel's launch count to 0 just before each main run and read them all
 just after: a kernel of the path must have run exactly as often as the
@@ -468,6 +485,22 @@ TRAIN_SAVE_AT = 10
 # it may reach one unit roundoff of bfloat16.
 TRAIN_NOISE_SEEDS = (1, 2, 3)
 TRAIN_GRAD_BIAS = 2.0 ** -8
+# Phase 12 [distributed]: the dry run's CLI in a child process (its
+# budget DIST_CLI_S), then Llama-3-8B at full width laid out over a
+# one-rank (1, 1) mesh: DIST_BATCH seeded prompts of DIST_PROMPT tokens
+# prefilled into a cache of DIST_MAX_LEN (the serve cells' max_len) and
+# DIST_STEPS decode steps on the plain path (`use_kernel=False`), whose
+# logits must equal the plain model's bit for bit; then the dry run's
+# count of that prefill and one decode step on a (1, 1) mesh: its FLOPs
+# equal to `FlopCounterMode`'s on the card, its peak within DIST_PEAK_RTOL
+# of `max_memory_allocated`. The phase's budget is DIST_BUDGET_S.
+DIST_BATCH, DIST_PROMPT, DIST_MAX_LEN, DIST_STEPS = 4, 1024, 1536, 8
+DIST_SEED = 5
+DIST_PEAK_RTOL = 0.10
+DIST_CLI_S = 300
+DIST_BUDGET_S = 90.0
+# the measured rates printed beside launch/mesh.py's constants
+GEMM_N, COPY_BYTES = 8192, 2 ** 30
 
 
 def log(msg: str) -> None:
@@ -2319,6 +2352,247 @@ def phase_train(torch, np, kernels):
     return launches
 
 
+def _dist_tokens(torch, cfg):
+    """DIST_BATCH prompts of DIST_PROMPT tokens (seed DIST_SEED)."""
+    gen = torch.Generator(device="cpu").manual_seed(DIST_SEED)
+    return torch.randint(0, cfg.vocab_size, (DIST_BATCH, DIST_PROMPT),
+                         generator=gen).to("cuda")
+
+
+def _dist_plain(torch, model, tokens):
+    """The plain model's prefill and DIST_STEPS greedy decode steps:
+    (logits of each step, the tokens fed, the cache)."""
+    logits, cache = model.prefill(tokens, DIST_MAX_LEN, use_kernel=False)
+    out, fed = [logits], []
+    for _ in range(DIST_STEPS):
+        token = logits[:, -1:].argmax(-1)
+        fed.append(token)
+        logits, cache = model.decode_step(cache, token, use_kernel=False)
+        out.append(logits)
+    return out, fed, cache
+
+
+def _card_cost(torch, step, own):
+    """`step()`'s FLOPs by `FlopCounterMode`, its peak device memory from
+    `reset_peak_memory_stats` and the median of 5 timed runs (ms), on the
+    card. `own`: the bytes of the step's resident arguments (params,
+    inputs, cache); what else is resident ("other": what earlier phases
+    still hold) is taken off the peak ("step_peak")."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        step()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"flops": counter.get_total_flops(), "peak": peak,
+            "resident": resident, "other": resident - own,
+            "step_peak": peak - (resident - own), "ms": sorted(times)[2]}
+
+
+def _rates(torch):
+    """A bf16 GEMM's rate (GEMM_N cubed) and a device-to-device copy's
+    (COPY_BYTES), measured with CUDA events: FLOP/s, bytes/s (read plus
+    written)."""
+    a = torch.randn(GEMM_N, GEMM_N, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn_like(a)
+    gemm_ms = eager_ms(lambda: a @ b, calls=20, trials=5)
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = eager_ms(lambda: dst.copy_(src), calls=20, trials=5)
+    return 2 * GEMM_N ** 3 / (gemm_ms * 1e-3), \
+        2 * COPY_BYTES / (copy_ms * 1e-3)
+
+
+def phase_distributed(torch, np, kernels):
+    """Phase 12: the distribution layer (`repro_torch.distributed`,
+    `launch/mesh.py`, `launch/dryrun.py`). (a) The dry run's CLI for
+    llama3-8b x decode_32k on both meshes in a child process, which must
+    pass; (b) Llama-3-8B at full width over `make_host_mesh()` by
+    `param_specs` and `cache_specs`, its prefill and decode logits equal
+    to the plain model's; (c) the dry run's per-device cost of that
+    prefill and of one decode step on a (1, 1) mesh against the card's
+    FLOPs (equal) and peak memory (within DIST_PEAK_RTOL), beside the
+    step's time and roofline terms; (d) no process group left. No kernel
+    launches on the path (`use_kernel=False`, as the dry run). Returns
+    the launches."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model
+    from repro_torch.models.config import InputShape
+    tag = "[distributed]"
+    t_phase = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3-8b", "--shape", "decode_32k", "--mesh", "both"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src")))
+    try:
+        cfg = get_config("llama3-8b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(cfg, device="cuda", seed=0)
+        tokens = _dist_tokens(torch, cfg)
+        zero_launches(kernels)
+        # (c) on the card first, on the plain model: the prefill, then one
+        # decode step at pos DIST_PROMPT (it rewrites the same cache row
+        # each time it runs)
+        params = sum(_nbytes(p) for p in model.parameters())
+        prefill = _card_cost(torch, lambda: model.prefill(
+            tokens, DIST_MAX_LEN, use_kernel=False),
+            params + _nbytes(tokens))
+        _, cache = model.prefill(tokens, DIST_MAX_LEN, use_kernel=False)
+        token = tokens[:, -1:]
+        decode = _card_cost(torch, lambda: model.decode_step(
+            cache, token, use_kernel=False),
+            params + _nbytes(token) + sum(map(_nbytes, tree_tensors(cache))))
+        del cache
+        # (b) the plain path, then the same model laid out on the mesh
+        plain, fed, cache = _dist_plain(torch, model, tokens)
+        del cache
+        t0 = time.perf_counter()
+        mesh = mesh_lib.make_host_mesh()
+        try:
+            shd.distribute(model, mesh, shd.param_specs(model, mesh))
+            toks = shd.distribute({"t": tokens}, mesh,
+                                  {"t": shd.P("data", None)})["t"]
+            logits, cache = model.prefill(toks, DIST_MAX_LEN,
+                                          use_kernel=False)
+            spread = [logits]
+            for token in fed:
+                tok = shd.distribute({"t": token}, mesh,
+                                     {"t": shd.P("data", None)})["t"]
+                logits, cache = model.decode_step(cache, tok,
+                                                  use_kernel=False)
+                spread.append(logits)
+            torch.cuda.synchronize()
+            layouts = sorted({str(t.placements) for t in tree_tensors(cache)
+                              if hasattr(t, "placements")})
+            spread = [t.full_tensor() for t in spread]
+            dt_s = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+        launches = read_launches(kernels)
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(spread, plain))
+        equal = all(torch.equal(a, b) for a, b in zip(spread, plain))
+        log(f"{tag} llama3-8b at full width over make_host_mesh() (1 x 1, "
+            f"nccl): prefill of {DIST_BATCH} x {DIST_PROMPT} tokens into "
+            f"{DIST_MAX_LEN} and {DIST_STEPS} decode steps on DTensors in "
+            f"{dt_s:.2f} s; cache layouts {layouts}; logits against the "
+            f"plain model: {'equal bit for bit' if equal else 'DIFFER'} "
+            f"(max |diff| {diff:.3e}, {len(plain)} steps)")
+        if not equal:
+            raise AssertionError(f"{tag} the one-rank DTensor model's "
+                                 f"logits differ from the plain model's")
+        del model, cache, spread, plain, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) the dry run's count of the same steps on a fake (1, 1) mesh
+        with dryrun.fake_group(1):
+            fake = mesh_lib.init_device_mesh(
+                "cuda", (1, 1), mesh_dim_names=mesh_lib.SINGLE_POD[1])
+            pred_prefill = dryrun.step_cost(
+                "llama3-8b", InputShape("smoke-prefill", DIST_PROMPT,
+                                        DIST_BATCH, "prefill"),
+                fake, cfg, max_len=DIST_MAX_LEN)
+            pred_decode = dryrun.step_cost(
+                "llama3-8b", InputShape("smoke-decode", DIST_MAX_LEN,
+                                        DIST_BATCH, "decode"), fake, cfg)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+        gemm, copy = _rates(torch)
+        log(f"{tag} card: {smi}; launch/mesh.py: bf16 "
+            f"{mesh_lib.PEAK_BF16_FLOPS:.3e} FLOP/s, HBM "
+            f"{mesh_lib.HBM_BW:.3e} B/s, link {mesh_lib.LINK_BW:.3e} B/s; "
+            f"measured: bf16 GEMM {GEMM_N}^3 {gemm:.3e} FLOP/s, "
+            f"device-to-device copy {copy:.3e} B/s (read + written)")
+        bad = []
+        for name, card, pred in (("prefill", prefill, pred_prefill),
+                                 ("decode", decode, pred_decode)):
+            terms = {"compute": pred["flops"] / mesh_lib.PEAK_BF16_FLOPS,
+                     "memory": pred["bytes"] / mesh_lib.HBM_BW,
+                     "collective": pred["coll"]["total"] / mesh_lib.LINK_BW}
+            bound = max(terms.values())
+            peak_err = rel(pred["peak_bytes"], card["step_peak"])
+            same = "equal" if pred["flops"] == card["flops"] else "DIFFER"
+            log(f"{tag} {name}: FLOPs dry run {pred['flops']:.6e}, card "
+                f"{card['flops']:.6e} ({same}); "
+                f"peak dry run {pred['peak_bytes'] / 1e9:.4f} GB "
+                f"(arguments {pred['argument_bytes'] / 1e9:.4f}, "
+                f"temporaries {pred['temp_bytes'] / 1e9:.4f}), card "
+                f"{card['step_peak'] / 1e9:.4f} GB (max_memory_allocated "
+                f"{card['peak'] / 1e9:.4f} less {card['other'] / 1e9:.4f} "
+                f"that earlier phases hold; relative {peak_err:.4f}); "
+                f"bytes accessed {pred['bytes']:.4e}, "
+                f"collectives {pred['coll']['total']:.0f} B; step "
+                f"{card['ms']:.3f} ms against roofline terms "
+                f"compute {terms['compute'] * 1e3:.3f} / memory "
+                f"{terms['memory'] * 1e3:.3f} / collective "
+                f"{terms['collective'] * 1e3:.3f} ms: "
+                f"{bound * 1e3 / card['ms']:.3f} of the bound")
+            if pred["flops"] != card["flops"]:
+                bad.append(f"{name} FLOPs")
+            if peak_err > DIST_PEAK_RTOL:
+                bad.append(f"{name} peak")
+        if bad:
+            raise AssertionError(f"{tag} the dry run's cost misses the "
+                                 f"card's: {', '.join(bad)}")
+        _check_launches(tag, launches, {name: 0 for name in launches})
+        out, _ = child.communicate(timeout=DIST_CLI_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("OK", "FAIL", "ALL"))]
+    for line in lines:
+        log(f"{tag} dry run: {line}")
+    if child.returncode != 0 or "ALL DRY-RUNS PASSED" not in out \
+            or "2x16x16" not in out:
+        raise AssertionError(f"{tag} the dry run's CLI failed (exit "
+                             f"{child.returncode}):\n{out[-3000:]}")
+    wall = time.perf_counter() - t_phase
+    log(f"[distributed] phase in {wall:.1f} s (budget {DIST_BUDGET_S:.0f})")
+    if wall > DIST_BUDGET_S:
+        raise AssertionError(f"{tag} the phase took {wall:.1f} s, over its "
+                             f"budget of {DIST_BUDGET_S:.0f} s")
+    return launches
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def tree_tensors(tree):
+    """The tensors in a nested dict (a cache)."""
+    for val in tree.values():
+        if isinstance(val, dict):
+            yield from tree_tensors(val)
+        elif val is not None and hasattr(val, "shape"):
+            yield val
+
+
 def absorbed_run(torch, kernels, serve):
     """Phase 7's `after`: the same model and requests served again with
     `mla_absorb=True` for ABSORB_NEW_TOKENS tokens each: the prefill goes
@@ -2460,6 +2734,11 @@ def main() -> int:
     ssd_by_path["train-llama3-8b"] = trained["ssd_scan"]
     for name, paths in attention_by_path.items():
         paths["train-llama3-8b"] = trained[name]
+    spread = phase_distributed(torch, np, every)
+    by_path["distributed-llama3-8b"] = spread["aging_update"]
+    ssd_by_path["distributed-llama3-8b"] = spread["ssd_scan"]
+    for name, paths in attention_by_path.items():
+        paths["distributed-llama3-8b"] = spread[name]
     launches["aging_update"] = sum(by_path.values())
     for name, paths in attention_by_path.items():
         launches[name] = sum(paths.values())

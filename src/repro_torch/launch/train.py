@@ -17,6 +17,7 @@ import argparse
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import store
 from repro_torch.configs import get_config, get_smoke_config
@@ -25,17 +26,26 @@ from repro_torch.models import Model, params_from_jax, params_to_jax
 from repro_torch.training import optimizer as opt_lib
 
 
+def _like_param(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its param's layout (a pending sum reduced, a
+    replicated gradient cut to the param's shard); a plain one as it is."""
+    if isinstance(grad, DTensor):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
 def make_train_step(model: Model, ocfg: opt_lib.AdamWConfig):
     """A plain function (opt_state, batch) -> (opt_state, loss, metrics):
     `model.loss` and its gradients by autograd, then one `apply_updates`
-    of the model's params, in place. Turns on the params' gradients."""
+    of the model's params, in place. Turns on the params' gradients. On a
+    mesh each gradient is first laid out as its param."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
 
     def train_step(opt_state, batch):
         loss = model.loss(batch)
         loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
+        grads = {n: _like_param(p.grad, p) for n, p in params.items()}
         _, opt_state, metrics = opt_lib.apply_updates(params, grads,
                                                       opt_state, ocfg)
         for p in params.values():

@@ -17,7 +17,13 @@ at bfloat16 they round where the reference's model path rounds.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.decode_attention.ops import decode_bhd
 from repro_torch.kernels.flash_attention.ops import attention_bhsd
@@ -68,6 +74,80 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _head_layout(mesh, batch: int, heads: int):
+    """(mesh dims the batch is split over, the `model` mesh dim the query
+    heads are split over or None) for an attention on `mesh`: the batch
+    over (`pod`, `data`) where they divide it, the heads over `model`
+    where it divides them; every other mesh dim holds them whole."""
+    names = mesh.mesh_dim_names
+    bax = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    if not bax or batch % math.prod(mesh.size(i) for i in bax):
+        bax = []
+    model = names.index("model") if "model" in names else None
+    if model is not None and heads % mesh.size(model):
+        model = None
+    return bax, model
+
+
+def _kv_heads_of(k, first: int, count: int, group: int):
+    """The KV heads (dim 2) that query heads first .. first + count - 1
+    read, with `group` query heads to a KV head, as a GQA layout of their
+    own: a slice where the query heads cover whole groups or lie in one,
+    else one KV head per query head."""
+    if count % group == 0:
+        return k[:, :, first // group:(first + count) // group]
+    if first // group == (first + count - 1) // group:
+        return k[:, :, first // group:first // group + 1]
+    idx = torch.div(torch.arange(first, first + count, device=k.device),
+                    group, rounding_mode="floor")
+    return k.index_select(2, idx)
+
+
+def _on_local_heads(fn, q, k, v, pos=None):
+    """`fn(q, k, v[, pos])`, an attention over (B, S, H, D) queries and
+    (B, S, Hkv, D) keys and values (a (B,) or () `pos` with them), run on
+    each device's own batch rows and query heads when q is a DTensor
+    (`local_map`): the batch over (`pod`, `data`) and the query heads over
+    `model` where they divide, each device's keys and values the KV heads
+    its query heads read, whole along S. Attention is independent per
+    (row, head), so this is Megatron's tensor-parallel attention, with no
+    collective inside; a length-sharded cache is gathered first (the
+    baseline's reshard; `decode_attention_length_sharded` avoids it).
+    Plain tensors go to `fn` as they are."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v) if pos is None else fn(q, k, v, pos)
+    mesh = q.device_mesh
+    heads, group = q.shape[2], q.shape[2] // k.shape[2]
+    bax, model = _head_layout(mesh, q.shape[0], heads)
+    split = mesh.size(model) if model is not None else 1
+
+    def layout(heads_split: bool):
+        return tuple(Shard(0) if i in bax else Shard(2)
+                     if heads_split and i == model else Replicate()
+                     for i in range(mesh.ndim))
+
+    def local(ql, kl, vl, *rest):
+        if split > 1:
+            first = mesh.get_local_rank(model) * (heads // split)
+            kl = _kv_heads_of(kl, first, heads // split, group)
+            vl = _kv_heads_of(vl, first, heads // split, group)
+        return fn(ql, kl, vl, *rest)
+
+    args, placements = [q, k, v], [layout(True), layout(False),
+                                   layout(False)]
+    if pos is not None:
+        pos = torch.as_tensor(pos, device=q.device)
+        if not isinstance(pos, DTensor):
+            pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        args.append(pos)
+        placements.append(layout(False) if pos.dim() else
+                          (Replicate(),) * mesh.ndim)
+    return local_map(local, out_placements=(layout(True),),
+                     in_placements=tuple(placements), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
                    q_offset: int = 0, scale: float | None = None,
                    chunk: int = 0, use_kernel: bool = True):
@@ -82,6 +162,13 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bidirectional (`causal=False`) attention by `window`."""
     if not causal and not (chunk and chunk < k.shape[1]):
         window = 0
+    return _on_local_heads(functools.partial(
+        _self_attention, causal=causal, window=window, scale=scale,
+        q_offset=q_offset, use_kernel=use_kernel), q, k, v)
+
+
+def _self_attention(q, k, v, *, causal, window, scale, q_offset,
+                    use_kernel):
     if not use_kernel:
         out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
@@ -142,10 +229,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     int32 — number of valid cache entries *including* the current token
     (the caller writes the new k/v at index pos-1 before calling).
     A vector pos supports continuous batching (per-slot lengths). Runs
-    in the decode kernel on CUDA tensors, else in its plain version.
+    in the decode kernel on CUDA tensors, else in its plain version; on
+    DTensors per device (`_on_local_heads`).
     """
-    return decode_bhd(q[:, 0], k_cache, v_cache, pos, window=window,
-                      scale=scale, use_kernel=use_kernel)[:, None]
+    def run(q, k_cache, v_cache, pos):
+        return decode_bhd(q[:, 0], k_cache, v_cache, pos, window=window,
+                          scale=scale, use_kernel=use_kernel)[:, None]
+    return _on_local_heads(run, q, k_cache, v_cache, pos)
 
 
 def decode_mask(s_max: int, pos, window: int = 0,
@@ -181,7 +271,11 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
 def write_row(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
     """Write one token's row `new` (B, 1, ...) into `cache` (B, S, ...) in
     place at index `pos` (scalar, or (B,) per slot), in the cache's dtype:
-    `cache_update`'s write of K or V, and MLA's of its latent."""
+    `cache_update`'s write of K or V, and MLA's of its latent. On a
+    DTensor cache each rank writes its own shard (`_write_sharded`)."""
+    if isinstance(cache, DTensor):
+        _write_sharded(cache, new, pos=pos)
+        return
     new = new.to(cache.dtype)
     pos = torch.as_tensor(pos, device=cache.device).long()
     if pos.dim() == 0:
@@ -191,17 +285,137 @@ def write_row(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
             new[:, 0]
 
 
+def write_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """Write a prompt's rows `new` (B, s, ...) into rows 0 to s - 1 of
+    `cache` (B, S, ...) in place, as a prefill fills its cache; on a
+    DTensor cache each rank writes its own shard."""
+    if isinstance(cache, DTensor):
+        _write_sharded(cache, new)
+    else:
+        cache[:, :new.shape[1]] = new
+
+
+def shard_offset(t: DTensor, dim: int) -> tuple[int, int]:
+    """(first index, count) along `dim` of the shard of DTensor `t` that
+    this rank holds: DTensor splits a dim over its mesh dims in mesh order,
+    evenly (the sharding rules shard only dims their axes divide)."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    index = 0
+    for i, placement in enumerate(t.placements):
+        if isinstance(placement, Shard) and placement.dim == dim:
+            index = index * mesh.size(i) + coord[i]
+    count = t.to_local().shape[dim]
+    return index * count, count
+
+
+def _write_sharded(cache: DTensor, new, pos=None) -> None:
+    """`write_prefix` (pos None) or `write_row` on a DTensor cache (B, S,
+    ...): `new` is laid out as the cache but whole along S, then each
+    rank writes the rows of its shard of S into its local tensor. A row
+    at `pos` outside the shard writes its old value back (pos stays on
+    the device: no rank reads it)."""
+    mesh = cache.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in cache.placements]
+    if isinstance(new, DTensor):
+        new = new.redistribute(mesh, want)
+    else:
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False).redistribute(mesh, want)
+    local, new = cache.to_local(), new.to_local().to(cache.dtype)
+    first, count = shard_offset(cache, 1)
+    if pos is None:
+        lo, hi = max(first, 0), min(first + count, new.shape[1])
+        if lo < hi:
+            local[:, lo - first:hi - first] = new[:, lo:hi]
+        return
+    if isinstance(pos, DTensor):
+        pos = pos.full_tensor()
+    pos = torch.as_tensor(pos, device=local.device).long()
+    if pos.dim():
+        b_first, b_count = shard_offset(cache, 0)
+        pos = pos[b_first:b_first + b_count]
+    if count == cache.shape[1]:
+        write_row(local, new, pos)
+        return
+    rel = pos - first
+    inside = (rel >= 0) & (rel < count)
+    rel = rel.clamp(0, count - 1)
+    if rel.dim() == 0:
+        idx = rel.reshape(1)
+        local.index_copy_(1, idx, torch.where(inside, new,
+                                              local.index_select(1, idx)))
+    else:
+        rows = torch.arange(local.shape[0], device=local.device)
+        keep = inside.reshape(-1, *([1] * (local.dim() - 2)))
+        local[rows, rel] = torch.where(keep, new[:, 0], local[rows, rel])
+
+
 def cross_attention(q: torch.Tensor, k_mem: torch.Tensor,
                     v_mem: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
-    """Encoder-decoder cross attention (no mask: full encoder memory)."""
-    return attention(q, k_mem, v_mem, None, scale)
+    """Encoder-decoder cross attention (no mask: full encoder memory);
+    on DTensors per device (`_on_local_heads`)."""
+    return _on_local_heads(lambda q, k, v: attention(q, k, v, None, scale),
+                           q, k_mem, v_mem)
 
 
 def decode_attention_length_sharded(q, k_cache, v_cache, pos, window=0,
                                     scale=None, use_kernel=True):
-    """The reference keeps a length-sharded cache layout across a device
-    mesh; on one GPU there is no mesh, and like the reference without one
-    this is `decode_attention`."""
-    return decode_attention(q, k_cache, v_cache, pos, window, scale,
-                            use_kernel)
+    """Flash-decoding-style decode attention that STAYS in the cache's
+    length-sharded layout (S -> `model`) instead of gathering the cache
+    every layer (the reference's §Perf path).
+
+    On DTensors over a mesh with a `model` axis that divides S: each device
+    takes the whole query (one token; recomputing it is free) against its
+    own rows of S (`local_map`), its batch rows over (`pod`, `data`) where
+    they divide; the softmax's max and sum and the PV contraction reduce
+    over the S shards by all-reduces over `model` of the (B, H) statistics
+    and the (B, H, Dv) output, the only collectives. Float32 scores, as
+    the reference's. Otherwise it is `decode_attention`."""
+    mesh = k_cache.device_mesh if isinstance(k_cache, DTensor) else None
+    if (mesh is None or "model" not in mesh.mesh_dim_names
+            or k_cache.shape[1] % mesh.size(
+                mesh.mesh_dim_names.index("model"))):
+        return decode_attention(q, k_cache, v_cache, pos, window, scale,
+                                use_kernel)
+    model = mesh.mesh_dim_names.index("model")
+    bax, _ = _head_layout(mesh, q.shape[0], 1)
+    group = (mesh, model)
+
+    def layout(s_dim=None):
+        return tuple(Shard(0) if i in bax else Shard(s_dim)
+                     if s_dim is not None and i == model else Replicate()
+                     for i in range(mesh.ndim))
+
+    def local(ql, kl, vl, pl):
+        b, _, h, d = ql.shape
+        hkv = kl.shape[2]
+        first = mesh.get_local_rank(model) * kl.shape[1]
+        sc = d ** -0.5 if scale is None else scale
+        qg = ql[:, 0].reshape(b, hkv, h // hkv, d).float()
+        scores = torch.einsum("begd,bsed->begs", qg, kl.float()) * sc
+        idx = first + torch.arange(kl.shape[1], device=ql.device)
+        p = pl if pl.dim() == 0 else pl[:, None, None, None]
+        valid = idx < p
+        if window:
+            valid &= idx >= p - window
+        scores = torch.where(valid, scores, NEG_INF)
+        m = funcol.all_reduce(scores.amax(-1, keepdim=True), "max", group)
+        probs = torch.exp(scores - m)
+        denom = funcol.all_reduce(probs.sum(-1, keepdim=True), "sum", group)
+        out = funcol.all_reduce(torch.einsum("begs,bsed->begd", probs,
+                                             vl.float()), "sum", group)
+        out = out / torch.clamp(denom, min=1e-30)
+        return out.reshape(b, 1, h, vl.shape[3]).to(ql.dtype)
+
+    pos = torch.as_tensor(pos, device=q.device)
+    if not isinstance(pos, DTensor):
+        pos = DTensor.from_local(pos, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return local_map(local, out_placements=(layout(),),
+                     in_placements=(layout(), layout(1), layout(1),
+                                    layout() if pos.dim() else
+                                    (Replicate(),) * mesh.ndim),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache, pos)

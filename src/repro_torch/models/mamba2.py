@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 from repro_torch.models.config import ModelConfig
@@ -132,7 +134,18 @@ def _causal_conv(seq: torch.Tensor, kernel: torch.Tensor,
     """Depthwise causal conv1d (a cross-correlation, as the reference's
     `lax.conv_general_dilated`). seq (B, L, C), kernel (W, C).
     prepend: (B, W-1, C) history (decode) or None (zero left-pad).
-    Returns (B, L, C), contiguous, in seq's dtype."""
+    Returns (B, L, C), contiguous, in seq's dtype. On DTensors each device
+    convolves its own channels (and batch rows) of the whole sequence."""
+    if isinstance(seq, DTensor):
+        mesh = seq.device_mesh
+        rows = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1
+                     else p for p in seq.placements)
+        taps = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2
+                     else Replicate() for p in rows)
+        return local_map(
+            _causal_conv, out_placements=(rows,),
+            in_placements=(rows, taps, None if prepend is None else rows),
+            device_mesh=mesh, redistribute_inputs=True)(seq, kernel, prepend)
     w = kernel.shape[0]
     full = seq.transpose(1, 2)                               # (B, C, L)
     if prepend is None:

@@ -57,12 +57,16 @@ reference). The model runs on the card unless the caller passes
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
@@ -114,6 +118,19 @@ def _fits(s: int, max_len: int | None) -> int:
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _mesh_aware(method):
+    """A public method of `Model` run with plain tensors taken as
+    replicated (`sharding.implicit_replication`) when the parameters are
+    DTensors (`sharding.distribute`); as it is otherwise."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.mesh is None:
+            return method(self, *args, **kwargs)
+        with shd.implicit_replication():
+            return method(self, *args, **kwargs)
+    return run
 
 
 def _attn_params(cfg: ModelConfig, make) -> nn.ParameterDict:
@@ -200,12 +217,17 @@ class MambaBlock(nn.Module):
 class _Maker:
     """Draws parameters from one generator straight on the device, in the
     model's dtype: each tensor is drawn in float32, scaled and cast on
-    its own, so no float32 copy of the whole model is ever held."""
+    its own, so no float32 copy of the whole model is ever held. On the
+    `meta` device it draws nothing and needs no generator: the tensors
+    have shapes and dtypes only (`Model.abstract_params`)."""
 
     def __init__(self, dtype, device, generator):
         self.dtype, self.device, self.generator = dtype, device, generator
 
     def normal(self, *shape, std=INIT_STD, dtype=None) -> torch.Tensor:
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype or self.dtype,
+                               device=self.device)
         x = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32).mul_(std)
         return x.to(dtype or self.dtype)
@@ -222,14 +244,16 @@ class _Maker:
 class Model(nn.Module):
     """A model of any family of the reference, with random weights drawn
     from a `torch.Generator` seeded with `seed`, on `device` (default
-    "cuda")."""
+    "cuda"); on "meta" a model of shapes only, which computes shapes
+    (the reference's `jax.eval_shape`)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = (None if dev.type == "meta"
+                     else torch.Generator(device=dev).manual_seed(seed))
         make = _Maker(_DTYPES[cfg.dtype], dev, generator)
         self.embed = _param(make.normal(cfg.padded_vocab, cfg.d_model))
         self.unembed = _param(make.normal(cfg.padded_vocab, cfg.d_model))
@@ -255,7 +279,97 @@ class Model(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
 
+    @property
+    def mesh(self):
+        """The `DeviceMesh` the parameters are laid out on
+        (`sharding.distribute`), or None."""
+        return (self.embed.device_mesh if isinstance(self.embed, DTensor)
+                else None)
+
+    def abstract_params(self) -> dict[str, torch.Tensor]:
+        """{name: meta tensor} of the parameters' shapes and dtypes, whole
+        (global) on a mesh: the reference's `abstract_params`
+        (`jax.eval_shape` of `init`). `Model(cfg, device="meta")` holds
+        such tensors itself."""
+        return {name: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for name, p in self.named_parameters()}
+
+    # ======================== mesh awareness ========================== #
+    def _model_axis(self) -> int | None:
+        """The size of the mesh's `model` axis, or None without one."""
+        mesh = self.mesh
+        if mesh is None or "model" not in mesh.mesh_dim_names:
+            return None
+        return mesh.size(mesh.mesh_dim_names.index("model"))
+
+    def _maybe_seq_parallel(self, h):
+        """Megatron-SP (§Perf): pin the residual stream to a
+        sequence-sharded layout at layer boundaries, so activations kept
+        for the backward pass are S / `model` per device; the tensor-
+        parallel all-reduces become reduce-scatter + all-gather pairs. The
+        batch stays over (`pod`, `data`) where it divides. `h` as it is
+        without `cfg.seq_parallel`, a DTensor or a `model` axis, or when
+        that axis does not divide S."""
+        model = self._model_axis()
+        if (not self.cfg.seq_parallel or not isinstance(h, DTensor)
+                or model is None or h.shape[1] % model):
+            return h
+        return self._lay_out(h, shd.P(self._batch_spec(h), "model", None))
+
+    def _batch_spec(self, t):
+        """The batch axes for `t`'s leading dim where they divide it."""
+        return shd.dim_spec(self.mesh, t.shape[0], shd.batch_axes(self.mesh))
+
+    def _lay_out(self, t, spec):
+        return t.redistribute(self.mesh, shd.placements(spec, self.mesh))
+
+    def _pin_residual(self, h):
+        """The residual stream's layout at the entry of each sublayer
+        (attention, MLP, Mamba2 block) and of the head, on a mesh with a
+        `model` axis: the batch over (`pod`, `data`) where it divides, and
+        S over `model` under `cfg.seq_parallel` (`_maybe_seq_parallel`),
+        else replicated over `model`, Megatron's tensor-parallel layout.
+        GSPMD infers that layout from the weights' shardings; DTensor
+        chooses op by op from its inputs' (after the embedding it would
+        shard S and gather the attention scores), so the port states it.
+        `h` as it is without a mesh or a `model` axis."""
+        if not isinstance(h, DTensor) or self._model_axis() is None:
+            return h
+        if self.cfg.seq_parallel and not h.shape[1] % self._model_axis():
+            return self._maybe_seq_parallel(h)
+        return self._lay_out(h, shd.P(self._batch_spec(h),
+                                      *([None] * (h.dim() - 1))))
+
+    def _kv_heads_shardable(self) -> bool:
+        """True when the KV-head count divides the model axis — then the
+        baseline head-sharded decode attention is already reshard-free and
+        the length-sharded path would only waste replicated-q compute.
+        True without a mesh."""
+        model = self._model_axis()
+        return model is None or self.cfg.num_kv_heads % model == 0
+
+    def _pin_cache(self, arr, kind="kv"):
+        """§Perf: pin a decode cache layer (B, S, H, D), or MLA's latent
+        (B, S, R), to its canonical layout after the token write: batch
+        over (`pod`, `data`), heads over `model` where they divide, else S
+        over `model` (the latent: S). `arr` as it is without
+        `cfg.pin_cache_sharding`, a DTensor or a `model` axis."""
+        if (not self.cfg.pin_cache_sharding or not isinstance(arr, DTensor)
+                or self._model_axis() is None):
+            return arr
+        mesh, b_ax = self.mesh, self._batch_spec(arr)
+        if kind == "kv":
+            h_ax = shd.dim_spec(mesh, arr.shape[2], "model")
+            s_ax = None if h_ax else shd.dim_spec(mesh, arr.shape[1],
+                                                  "model")
+            spec = shd.P(b_ax, s_ax, h_ax, None)
+        else:
+            spec = shd.P(b_ax, shd.dim_spec(mesh, arr.shape[1], "model"),
+                         None)
+        return self._lay_out(arr, spec)
+
     # ========================= train forward ========================== #
+    @_mesh_aware
     def loss(self, batch: dict) -> torch.Tensor:
         """Mean next-token CE (+ MOE_AUX_COEF x the MoE aux loss), the
         reference's train forward. batch keys: tokens (B, S_text) int,
@@ -318,8 +432,8 @@ class Model(nn.Module):
         if cfg.family == "hybrid":
             return self._hybrid_forward(h, positions), 0.0
         if cfg.family == "ssm":
-            body = self._remat(lambda hh, blk: mamba2.mamba2_block(hh, blk,
-                                                                   cfg))
+            body = self._remat(lambda hh, blk: mamba2.mamba2_block(
+                self._pin_residual(hh), blk, cfg))
             for blk in self.layers:
                 h = body(h, blk)
             return h, 0.0
@@ -336,8 +450,8 @@ class Model(nn.Module):
         single SHARED attention block; the tail's Mamba2 layers last."""
         cfg = self.cfg
         per, g = cfg.hybrid_period, cfg.num_hybrid_groups
-        inner = self._remat(lambda hh, blk: mamba2.mamba2_block(hh, blk,
-                                                                cfg))
+        inner = self._remat(lambda hh, blk: mamba2.mamba2_block(
+            self._pin_residual(hh), blk, cfg))
 
         def group(hh, gi):
             for blk in self.layers[gi * per:(gi + 1) * per]:
@@ -382,21 +496,19 @@ class Model(nn.Module):
     # ====================== attention sub-blocks ====================== #
     def _gqa_qkv(self, h, ap, positions):
         cfg = self.cfg
-        b, s, _ = h.shape
         hd = cfg.resolved_head_dim
-        q = (h @ ap["wq"]).reshape(b, s, cfg.num_heads, hd)
-        k = (h @ ap["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-        v = (h @ ap["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+        q = shd.split_last(h @ ap["wq"], cfg.num_heads, hd)
+        k = shd.split_last(h @ ap["wk"], cfg.num_kv_heads, hd)
+        v = shd.split_last(h @ ap["wv"], cfg.num_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
     def _mla_q(self, h, ap, positions):
         cfg = self.cfg
-        b, s, _ = h.shape
         qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
         ql = rms_norm(h @ ap["q_down"], ap["q_ln"], cfg.norm_eps)
-        q = (ql @ ap["q_up"]).reshape(b, s, cfg.num_heads, qk_dim)
+        q = shd.split_last(ql @ ap["q_up"], cfg.num_heads, qk_dim)
         q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
                                      dim=-1)
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -420,10 +532,9 @@ class Model(nn.Module):
         c_kv, k_rope = torch.split(latent,
                                    [cfg.kv_lora_rank, cfg.qk_rope_dim],
                                    dim=-1)
-        k_nope = (c_kv @ ap["k_up"]).reshape(b, s, cfg.num_heads,
-                                             cfg.qk_nope_dim)
-        v = (c_kv @ ap["v_up"]).reshape(b, s, cfg.num_heads,
-                                        cfg.v_head_dim)
+        k_nope = shd.split_last(c_kv @ ap["k_up"], cfg.num_heads,
+                                cfg.qk_nope_dim)
+        v = shd.split_last(c_kv @ ap["v_up"], cfg.num_heads, cfg.v_head_dim)
         k_rope = k_rope[:, :, None, :].expand(b, s, cfg.num_heads,
                                               cfg.qk_rope_dim)
         return torch.cat([k_nope, k_rope], dim=-1), v
@@ -436,6 +547,7 @@ class Model(nn.Module):
         (an encoder's) bidirectional; returns (h, what the decode cache
         keeps: (k, v), or MLA's latent)."""
         cfg = self.cfg
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
         if cfg.attn_type == "mla":
             q = self._mla_q(hn, blk.attn, positions)
@@ -448,7 +560,7 @@ class Model(nn.Module):
         o = attn.self_attention(q, k, v, causal=causal,
                                 window=cfg.sliding_window, scale=scale,
                                 chunk=cfg.attn_chunk, use_kernel=use_kernel)
-        o = o.reshape(*o.shape[:2], -1)
+        o = shd.merge_last(o)
         return h + o @ blk.attn["wo"], kept
 
     def _mlp(self, h, blk):
@@ -456,6 +568,7 @@ class Model(nn.Module):
 
     def _mlp_aux(self, h, blk):
         """The MLP half of a layer: (h, the MoE aux loss, or 0.0)."""
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln2, self.cfg.norm_eps)
         if self.cfg.num_experts:
             y, aux = moe.moe_ffn_sharded(hn, blk.mlp, self.cfg)
@@ -469,24 +582,24 @@ class Model(nn.Module):
         no rope, no mask (`repro.models.model._gqa_qkv_mem`); plain
         PyTorch, as the reference's jnp."""
         cfg = self.cfg
-        b, s, _ = h.shape
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln_x, cfg.norm_eps)
-        q = (hn @ blk.xattn["wq"]).reshape(b, s, cfg.num_heads,
-                                            cfg.resolved_head_dim)
+        q = shd.split_last(hn @ blk.xattn["wq"], cfg.num_heads,
+                           cfg.resolved_head_dim)
         o = attn.cross_attention(q, xk, xv)
-        return h + o.reshape(b, s, -1) @ blk.xattn["wo"]
+        return h + shd.merge_last(o) @ blk.xattn["wo"]
 
     def _memory_kv(self, memory, blk):
         """The encoder memory's keys and values for one decoder layer's
         cross-attention (B, S_mem, Hkv, D), kept in the decode cache."""
         cfg = self.cfg
-        b, s, _ = memory.shape
-        shape = (b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return ((memory @ blk.xattn["wk"]).reshape(shape),
-                (memory @ blk.xattn["wv"]).reshape(shape))
+        heads = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        return (shd.split_last(memory @ blk.xattn["wk"], *heads),
+                shd.split_last(memory @ blk.xattn["wv"], *heads))
 
     # ========================= serving: prefill ======================= #
     @torch.no_grad()
+    @_mesh_aware
     def prefill(self, tokens: torch.Tensor, max_len: int | None = None, *,
                 embeds: torch.Tensor | None = None, use_kernel: bool = True):
         """Process the full prompt (B, S) int tokens; returns (last-token
@@ -520,17 +633,18 @@ class Model(nn.Module):
             h, kept = self._attn_full(h, blk, positions, use_kernel)
             h = self._mlp(h, blk)
             if cfg.attn_type == "mla":
-                cache["latent"][i, :, :s] = kept
+                attn.write_prefix(cache["latent"][i], kept)
             elif ring:
                 cache["k"][i] = self._to_ring(kept[0], s)
                 cache["v"][i] = self._to_ring(kept[1], s)
             else:
-                cache["k"][i, :, :s] = kept[0]
-                cache["v"][i, :, :s] = kept[1]
+                attn.write_prefix(cache["k"][i], kept[0])
+                attn.write_prefix(cache["v"][i], kept[1])
         return self._head(h[:, -1:]), self._with_pos(cache, s)
 
     def _head(self, h):
         """Logits of the last hidden states (B, S, D)."""
+        h = self._pin_residual(h)
         return unembed(rms_norm(h, self.final_ln, self.cfg.norm_eps),
                        self.unembed, self.cfg)
 
@@ -546,7 +660,16 @@ class Model(nn.Module):
         window), MLA's latent, the ssm's conv history and state (which
         ignore `max_len`), the hybrid's groups, or the encoder-decoder's
         self and cross caches, the latter over `memory_len` encoder
-        frames (default: the config's `frontend_tokens`)."""
+        frames (default: the config's `frontend_tokens`). On a mesh, laid
+        out on it by `sharding.cache_specs`."""
+        cache = self._zero_cache(batch, max_len, memory_len)
+        mesh = self.mesh
+        if mesh is None:
+            return cache
+        return shd.distribute(cache, mesh,
+                              shd.cache_specs(self.cfg, cache, mesh))
+
+    def _zero_cache(self, batch, max_len, memory_len):
         cfg = self.cfg
         f32 = torch.float32
 
@@ -646,8 +769,8 @@ class Model(nn.Module):
                 h, (k, v) = self._attn_full(h, self.shared, positions,
                                             use_kernel)
                 h = self._mlp(h, self.shared)
-                ck[:, :s] = k
-                cv[:, :s] = v
+                attn.write_prefix(ck, k)
+                attn.write_prefix(cv, v)
         return self._head(h[:, -1:]), self._with_pos(cache, s)
 
     def _prefill_encdec(self, tokens, embeds, max_len, use_kernel):
@@ -677,11 +800,11 @@ class Model(nn.Module):
             q, k, v = self._gqa_qkv(hn, blk.attn, positions)
             o = attn.self_attention(q, k, v, causal=True,
                                     use_kernel=use_kernel)
-            h = h + o.reshape(b, s, -1) @ blk.attn["wo"]
+            h = h + shd.merge_last(o) @ blk.attn["wo"]
             xk, xv = self._memory_kv(memory, blk)
             h = self._mlp(self._cross_attn(h, blk, xk, xv), blk)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            attn.write_prefix(cache["k"][i], k)
+            attn.write_prefix(cache["v"][i], v)
             cache["xk"][i] = xk
             cache["xv"][i] = xv
         return self._head(h[:, -1:]), self._with_pos(cache, s)
@@ -696,6 +819,7 @@ class Model(nn.Module):
         di, n = cfg.d_inner, cfg.ssm_state
         nh, p = cfg.ssm_heads, cfg.ssm_head_dim
         w = cfg.ssm_conv_width
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln, cfg.norm_eps)
         z, xbc, dt = mamba2.mamba2_projections(hn, blk, cfg)
         # the reference keeps xbc[:, -(W-1):], fewer than W-1 rows after a
@@ -717,6 +841,7 @@ class Model(nn.Module):
 
     # ========================= serving: decode ======================== #
     @torch.no_grad()
+    @_mesh_aware
     def decode_step(self, cache: dict, token: torch.Tensor, *,
                     use_kernel: bool = True):
         """One decode step. token: (B, 1) int. Returns (logits (B, 1,
@@ -761,7 +886,8 @@ class Model(nn.Module):
         reference), its conv history and state written back in place at
         index `i` of `conv` and `state`."""
         h, new = mamba2.mamba2_block_decode(
-            h, blk, {"conv": conv[i], "state": state[i]}, self.cfg)
+            self._pin_residual(h), blk, {"conv": conv[i], "state": state[i]},
+            self.cfg)
         conv[i] = new["conv"]
         state[i] = new["state"]
         return h
@@ -773,16 +899,18 @@ class Model(nn.Module):
         kernel (no window, as in the reference), cross-attention against
         the cached memory keys and values, the MLP."""
         cfg = self.cfg
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
         q, k, v = self._gqa_qkv(hn, blk.attn, positions)
         ck, cv = attn.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
-        o = attn.decode_attention(q, ck, cv, pos + 1, use_kernel=use_kernel)
-        h = h + o.reshape(*o.shape[:2], -1) @ blk.attn["wo"]
+        o = self._decode_attention(q, ck, cv, pos + 1, 0, use_kernel)
+        h = h + shd.merge_last(o) @ blk.attn["wo"]
         return self._mlp(self._cross_attn(h, blk, cache["xk"][i],
                                           cache["xv"][i]), blk)
 
     def _gqa_decode_block(self, h, blk, ck, cv, pos, positions, use_kernel):
         cfg = self.cfg
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
         q, k, v = self._gqa_qkv(hn, blk.attn, positions)
         if cfg.swa_ring and cfg.sliding_window:
@@ -794,11 +922,23 @@ class Model(nn.Module):
             attn.cache_update(ck, cv, k, v, pos)
             pos_eff = pos + 1
             window = cfg.sliding_window
-        o = attn.decode_attention(q, ck, cv, pos_eff, window=window,
-                                  use_kernel=use_kernel)
-        o = o.reshape(*o.shape[:2], -1)
+        o = self._decode_attention(q, ck, cv, pos_eff, window, use_kernel)
+        o = shd.merge_last(o)
         h = h + o @ blk.attn["wo"]
         return self._mlp(h, blk)
+
+    def _decode_attention(self, q, ck, cv, pos, window, use_kernel):
+        """The decode attention of a GQA layer: with `pin_cache_sharding`
+        on a mesh whose `model` axis the KV heads do not divide, the
+        caches pinned to their length-sharded layout and attended there
+        (`decode_attention_length_sharded`), as the reference; else
+        `decode_attention`."""
+        if self.cfg.pin_cache_sharding and not self._kv_heads_shardable():
+            ck, cv = self._pin_cache(ck), self._pin_cache(cv)
+            return attn.decode_attention_length_sharded(
+                q, ck, cv, pos, window=window, use_kernel=use_kernel)
+        return attn.decode_attention(q, ck, cv, pos, window=window,
+                                     use_kernel=use_kernel)
 
     def _mla_decode_block(self, h, blk, latent_cache, pos, positions,
                           use_kernel):
@@ -807,10 +947,12 @@ class Model(nn.Module):
         naive materialization) and attend with pos + 1 valid rows, or,
         with `mla_absorb`, attend against the latent itself."""
         cfg = self.cfg
+        h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
         q = self._mla_q(hn, blk.attn, positions)
         lat_new = self._mla_latent(hn, blk.attn, positions)
         attn.write_row(latent_cache, lat_new, pos)
+        latent_cache = self._pin_cache(latent_cache, kind="latent")
         scale = self._mla_scale()
         if cfg.mla_absorb:
             o = self._mla_absorbed_attention(q, latent_cache, blk.attn, pos,
@@ -819,7 +961,7 @@ class Model(nn.Module):
             k, v = self._mla_kv_from_latent(latent_cache, blk.attn)
             o = attn.decode_attention(q, k, v, pos + 1, scale=scale,
                                       use_kernel=use_kernel)
-        o = o.reshape(*o.shape[:2], -1)
+        o = shd.merge_last(o)
         h = h + o @ blk.attn["wo"]
         return self._mlp(h, blk)
 
@@ -834,7 +976,7 @@ class Model(nn.Module):
         heads = cfg.num_heads
         q_nope, q_rope = torch.split(q[:, 0], [cfg.qk_nope_dim,
                                                cfg.qk_rope_dim], dim=-1)
-        k_up = ap["k_up"].reshape(cfg.kv_lora_rank, heads, cfg.qk_nope_dim)
+        k_up = shd.split_last(ap["k_up"], heads, cfg.qk_nope_dim)
         # q_eff[b,h,r] = sum_d q_nope[b,h,d] * k_up[r,h,d]
         q_eff = torch.einsum("bhd,rhd->bhr", q_nope.float(), k_up.float())
         c_kv, k_rope = torch.split(latent_cache,
@@ -849,7 +991,7 @@ class Model(nn.Module):
         scores = torch.where(idx < p + 1, scores, attn.NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         out_lat = torch.einsum("bhs,bsr->bhr", probs, c_kv)
-        v_up = ap["v_up"].reshape(cfg.kv_lora_rank, heads, cfg.v_head_dim)
+        v_up = shd.split_last(ap["v_up"], heads, cfg.v_head_dim)
         o = torch.einsum("bhr,rhd->bhd", out_lat, v_up.float())
         return o[:, None].to(q.dtype)
 

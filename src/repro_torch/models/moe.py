@@ -12,8 +12,12 @@ kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
 
@@ -123,10 +127,53 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: ModelConfig
 
 def moe_ffn_sharded(x: torch.Tensor, params: dict, cfg: ModelConfig
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """`moe_ffn` on one device. The reference shards the dispatch over a
-    device mesh with `shard_map` and falls back to `moe_ffn` without a
-    `model` mesh axis; the port has no mesh (ROADMAP A14)."""
-    return moe_ffn(x, params, cfg)
+    """`moe_ffn` with the sorted-capacity dispatch kept on each device:
+    on DTensors over a mesh with a `model` axis it runs `moe_ffn` on the
+    local shards (`local_map`, the reference's `shard_map`), so the sorts,
+    gathers and scatters stay device-local and never meet DTensor's
+    sharding rules.
+
+    The batch stays sharded over (`pod`, `data`) where it divides; expert
+    weights are sharded on d_ff over `model`, so each device's w_down
+    contraction is a partial sum, finished by an all-reduce over `model`
+    (the reference's `psum`, the collective a dense row-parallel MLP
+    needs); the aux loss is averaged over the batch axes (`pmean`). Without
+    a `model` axis (or without DTensors) it is `moe_ffn`."""
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return moe_ffn(x, params, cfg)
+    names = mesh.mesh_dim_names
+    bax = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    n_batch = math.prod(mesh.size(i) for i in bax)
+    if not bax or x.shape[0] % n_batch:
+        bax, n_batch = [], 1
+    model = names.index("model")
+    f_ok = cfg.d_ff % mesh.size(model) == 0
+
+    def layout(batch, model_dim):
+        return tuple(batch if i in bax else model_dim if i == model
+                     else Replicate() for i in range(mesh.ndim))
+    x_in = layout(Shard(0), Replicate())
+    rep = layout(Replicate(), Replicate())
+    f_in = Shard(2) if f_ok else Replicate()
+
+    def local_fn(x_l, router, wg, wu, wd):
+        y, aux = moe_ffn(x_l, {"router": router, "w_gate": wg, "w_up": wu,
+                               "w_down": wd}, cfg)
+        return y, aux / n_batch
+
+    y, aux = local_map(
+        local_fn,
+        out_placements=(layout(Shard(0), Partial() if f_ok else Replicate()),
+                        layout(Partial(), Replicate())),
+        in_placements=(x_in, rep, layout(Replicate(), f_in),
+                       layout(Replicate(), f_in),
+                       layout(Replicate(), Shard(1) if f_ok
+                              else Replicate())),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(x, params["router"], params["w_gate"], params["w_up"],
+      params["w_down"])
+    return y.redistribute(mesh, x_in), aux.redistribute(mesh, rep)
 
 
 def moe_ffn_dense_reference(x: torch.Tensor, params: dict,

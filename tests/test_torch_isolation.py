@@ -50,6 +50,11 @@ def test_import_leaves_reference_unloaded():
             "import repro_torch.telemetry, repro_torch.checkpoint.store;"
             "import repro_torch.launch.train, repro_torch.training.optimizer;"
             "import repro_torch.data.pipeline;"
+            "import repro_torch.distributed.sharding;"
+            "import repro_torch.distributed.hlo_analysis;"
+            "import repro_torch.launch.mesh, repro_torch.launch.dryrun;"
+            "import torch.distributed as dist;"
+            "assert not dist.is_initialized();"
             "print([m for m in sys.modules if m.split('.')[0] in "
             "('repro', 'jax')])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
