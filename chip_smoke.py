@@ -203,9 +203,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    `max_memory_allocated` (params and cache resident), printed beside
    the step's time, its roofline terms (launch/mesh.py's constants) and a
    measured bf16 GEMM rate and copy rate. The process group is destroyed
-   before the phase returns; the phase must take at most 90 s.
+   before the phase returns; the phase must take at most 90 s. Beside it,
+   in two more child processes, the dry run at 2 layers (`--layers 2`) of
+   the set that failed on the card's torch 2.11 before F3's repair:
+   train_4k of llama3-8b, granite-moe-3b-a800m, minicpm3-4b, mamba2-2.7b,
+   zamba2-7b, internvl2-2b and seamless-m4t-large-v2, and minicpm3-4b's
+   decode_32k, each on both meshes; it must pass, within its own budget
+   (`DIST_F3_BUDGET_S`), timed apart from the phase's.
+13. The examples (`[examples]`): each script of `examples_torch/` in a
+   child process, as a user runs it (through `runpy`, which then prints
+   the launch counts of the child's kernels). `quickstart.py`,
+   `carbon_report.py` at its defaults with `--telemetry DIR` and
+   `telemetry_report.py` on the proposed run's export: their report lines
+   must equal the reference's (`tests/data/examples_expected.json`, host
+   numpy, the same on any machine; the directory, fingerprints and wall
+   times written apart). `serve_cluster.py` on the card: its serving demo
+   (the smoke Llama-3-8B, 12 requests x 12 tokens) must launch the
+   flash_attention kernel once per layer and request and the
+   decode_attention kernel once per layer and decode step, 33 steps
+   (path `example-serve-cluster`; phase 2 holds both kernels at the
+   demo's shapes), its two cluster sweeps print the reference's lines.
+   `train_small.py --steps 60`, and again with `--big`, on the card into
+   a temporary checkpoint directory: the loss at the last log line must
+   be below the first, and no kernel may launch; the small run's loss
+   must fall by EXAMPLES_TRAIN_MIN_FALL, ten times the spread of its
+   logged losses at fixed weights. `--big`'s 60 steps move its loss by
+   less than that spread, so its hold shows only that the 100M run goes
+   through on the card. Each script's
+   wall, the demo's tok/s and the step times are printed beside the
+   card's name and power limit; the host reports run beside the card's
+   scripts, and the phase's budget is EXAMPLES_BUDGET_S.
 
-Phases 3, 3b, 3c, 3d, each serving run and each training run set every
+Phases 3, 3b, 3c, 3d, each serving run, each training run and the
+serving example set every
 kernel's launch count to 0 just before each main run and read them all
 just after: a kernel of the path must have run exactly as often as the
 path calls it, and no other kernel at all.
@@ -221,6 +251,7 @@ import json
 import math
 import os
 import platform
+import re
 import shutil
 import subprocess
 import sys
@@ -301,7 +332,8 @@ SETTLE_CALLS = 200
 # heads over 40, q/k head dim 96, v head dim 64) and Zamba2's shared block
 # (32 heads over 32, head dim 112) in both dtypes, all causal; and
 # Seamless's encoder (16 heads over 16, head dim 64, 1,024 frames),
-# bidirectional
+# bidirectional; and the serving example's prefill (the smoke Llama-3-8B:
+# one request of 24 tokens, 8 heads over 2, head dim 32)
 FLASH_CASES = ([(b, h, hkv, s, d, d, 0, dt, True)
                 for dt in ("float32", "bfloat16")
                 for b, h, hkv, s, d in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
@@ -317,7 +349,8 @@ FLASH_CASES = ([(b, h, hkv, s, d, d, 0, dt, True)
                + [(1, 32, 32, 1024, 112, 112, 0, dt, True)
                   for dt in ("float32", "bfloat16")]
                + [(1, 16, 16, 1024, 64, 64, 0, dt, False)
-                  for dt in ("float32", "bfloat16")])
+                  for dt in ("float32", "bfloat16")]
+               + [(1, 8, 2, 24, 32, 32, 0, "bfloat16", True)])
 FLASH_MAIN = (1, 32, 8, 1024, 128, 128, 0, "bfloat16", True)
 FLASH_MLA = (1, 40, 40, 1024, 96, 64, 0, "bfloat16", True)
 FLASH_ZAMBA = (1, 32, 32, 1024, 112, 112, 0, "bfloat16", True)
@@ -327,7 +360,8 @@ FLASH_ENCODER = (1, 16, 16, 1024, 64, 64, 0, "bfloat16", False)
 # at the serve shape, Llama-3-8B's decode (4 slots against the
 # 1,536-position cache, pos drawn in [1, 1536]), MiniCPM3's (40 heads
 # over 40, 96 / 64) and Zamba2's shared block (32 heads over 32, 112) in
-# both dtypes
+# both dtypes; and the serving example's decode (4 slots against its
+# 96-position cache, 8 heads over 2, head dim 32)
 DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                  for dt in ("float32", "bfloat16")
                  for b, h, hkv, s, d in ((1, 4, 4, 512, 64),
@@ -341,7 +375,8 @@ DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                 + [(4, 40, 40, 1536, 96, 64, 0, dt)
                    for dt in ("float32", "bfloat16")]
                 + [(4, 32, 32, 1536, 112, 112, 0, dt)
-                   for dt in ("float32", "bfloat16")])
+                   for dt in ("float32", "bfloat16")]
+                + [(4, 8, 2, 96, 32, 32, 0, "bfloat16")])
 DECODE_MAIN = (4, 32, 8, 1536, 128, 128, 0, "bfloat16")
 DECODE_MLA = (4, 40, 40, 1536, 96, 64, 0, "bfloat16")
 DECODE_ZAMBA = (4, 32, 32, 1536, 112, 112, 0, "bfloat16")
@@ -499,8 +534,30 @@ DIST_SEED = 5
 DIST_PEAK_RTOL = 0.10
 DIST_CLI_S = 300
 DIST_BUDGET_S = 90.0
+# ... and beside it the dry run of the set that failed on torch 2.11
+# (ROADMAP F3) at DIST_F3_LAYERS layers, both meshes, in two child
+# processes (its own budget DIST_F3_BUDGET_S; it takes about 60 s)
+DIST_F3_TRAIN = ("llama3-8b", "granite-moe-3b-a800m", "minicpm3-4b",
+                 "mamba2-2.7b", "zamba2-7b", "internvl2-2b",
+                 "seamless-m4t-large-v2")
+DIST_F3_DECODE = ("minicpm3-4b",)
+DIST_F3_LAYERS = 2
+DIST_F3_BUDGET_S = 240.0
 # the measured rates printed beside launch/mesh.py's constants
 GEMM_N, COPY_BYTES = 8192, 2 ** 30
+# Phase 13 [examples]: the expected report lines (made from the
+# reference's examples by tests/test_torch_examples_data.py), the serving
+# demo's decode steps (12 requests of 12 tokens in waves of 4 slots, each
+# prefill giving the first token), the training example's steps and the
+# fall of its loss over them (at lr 0 the 6 logged losses of the small
+# run span 6.9492 to 6.9812 on the CPU, a spread of 0.032; trained, they
+# fall by 0.92 on the card), and the phase's budget (the host reports
+# beside the card's scripts: about 90 s)
+EXAMPLES_EXPECTED = Path("tests") / "data" / "examples_expected.json"
+EXAMPLES_DEMO_DECODE_STEPS = 3 * 11
+EXAMPLES_TRAIN_STEPS = 60
+EXAMPLES_TRAIN_MIN_FALL = 0.3
+EXAMPLES_BUDGET_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -2437,12 +2494,19 @@ def phase_distributed(torch, np, kernels):
     from repro_torch.models.config import InputShape
     tag = "[distributed]"
     t_phase = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "llama3-8b", "--shape", "decode_32k", "--mesh", "both"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=dict(os.environ, PYTHONPATH=str(
-            Path(__file__).resolve().parent / "src")))
+
+    def dry_run(*args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent / "src")))
+    child = dry_run("--arch", "llama3-8b", "--shape", "decode_32k",
+                    "--mesh", "both")
+    f3 = [dry_run("--arch", ",".join(archs), "--shape", shape, "--mesh",
+                  "both", "--layers", str(DIST_F3_LAYERS))
+          for archs, shape in ((DIST_F3_TRAIN, "train_4k"),
+                               (DIST_F3_DECODE, "decode_32k"))]
     try:
         cfg = get_config("llama3-8b")
         gc.collect()
@@ -2558,26 +2622,202 @@ def phase_distributed(torch, np, kernels):
                                  f"card's: {', '.join(bad)}")
         _check_launches(tag, launches, {name: 0 for name in launches})
         out, _ = child.communicate(timeout=DIST_CLI_S)
+        wall = time.perf_counter() - t_phase
+        f3_out = [proc.communicate(timeout=DIST_F3_BUDGET_S)[0]
+                  for proc in f3]
+        f3_wall = time.perf_counter() - t_phase
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.communicate()
+        for proc in (child, *f3):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
         if dist.is_initialized():
             dist.destroy_process_group()
-    lines = [ln for ln in out.splitlines()
-             if ln.startswith(("OK", "FAIL", "ALL"))]
-    for line in lines:
-        log(f"{tag} dry run: {line}")
-    if child.returncode != 0 or "ALL DRY-RUNS PASSED" not in out \
-            or "2x16x16" not in out:
-        raise AssertionError(f"{tag} the dry run's CLI failed (exit "
-                             f"{child.returncode}):\n{out[-3000:]}")
-    wall = time.perf_counter() - t_phase
+
+    def passed(proc, text, what):
+        for line in text.splitlines():
+            if line.startswith(("OK", "FAIL", "ALL")):
+                log(f"{tag} {what}: {line}")
+        if proc.returncode != 0 or "ALL DRY-RUNS PASSED" not in text \
+                or "2x16x16" not in text:
+            raise AssertionError(f"{tag} the {what} failed (exit "
+                                 f"{proc.returncode}):\n{text[-3000:]}")
+    passed(child, out, "dry run")
     log(f"[distributed] phase in {wall:.1f} s (budget {DIST_BUDGET_S:.0f})")
     if wall > DIST_BUDGET_S:
         raise AssertionError(f"{tag} the phase took {wall:.1f} s, over its "
                              f"budget of {DIST_BUDGET_S:.0f} s")
+    for proc, text in zip(f3, f3_out):
+        passed(proc, text, f"F3 dry run ({DIST_F3_LAYERS} layers)")
+    log(f"{tag} F3 set on torch {torch.__version__}: "
+        f"{len(DIST_F3_TRAIN)} x train_4k and {len(DIST_F3_DECODE)} x "
+        f"decode_32k on both meshes at {DIST_F3_LAYERS} layers passed in "
+        f"{f3_wall:.1f} s (budget {DIST_F3_BUDGET_S:.0f}; card: {smi})")
+    if f3_wall > DIST_F3_BUDGET_S:
+        raise AssertionError(f"{tag} the F3 dry run took {f3_wall:.1f} s, "
+                             f"over its budget of {DIST_F3_BUDGET_S:.0f} s")
     return launches
+
+
+#: runs an example as `__main__` in a child process, then prints the
+#: launch counts of the port's kernels in that process on a line of its own
+_EXAMPLE_RUNNER = """
+import json, runpy, sys
+path, *argv = sys.argv[1:]
+sys.argv = [path, *argv]
+runpy.run_path(path, run_name="__main__")
+from repro_torch.kernels.aging_update.ops import KERNEL as A
+from repro_torch.kernels.decode_attention.ops import KERNEL as D
+from repro_torch.kernels.flash_attention.ops import KERNEL as F
+from repro_torch.kernels.ssd_scan.ops import KERNEL as S
+print("[launches] " + json.dumps({k.name: k.launches for k in (A, F, D, S)}))
+"""
+
+
+def _run_example(tag, script, args, timeout):
+    """`examples_torch/<script>.py args` in a child process: (its output
+    without the launch line, its kernels' launch counts, its wall s)."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXAMPLE_RUNNER,
+         str(root / "examples_torch" / f"{script}.py"), *args],
+        capture_output=True, text=True, timeout=timeout, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} {script}.py {' '.join(args)} failed "
+                             f"(exit {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    launches = json.loads(lines[-1].removeprefix("[launches] "))
+    return "\n".join(lines[:-1]) + "\n", launches, wall
+
+
+def _example_lines(stdout, directory, spec):
+    """The report lines as `tests/test_torch_examples_data.py` writes
+    them: `directory` as `<DIR>`, fingerprints as `<FP>`, the lines of
+    `spec["drop"]`'s patterns left out."""
+    stdout = re.sub(*spec["fingerprint"], stdout.replace(directory, "<DIR>"))
+    return [ln for ln in stdout.splitlines()
+            if not any(re.search(p, ln) for p in spec["drop"])]
+
+
+def _hold_lines(tag, script, got, spec):
+    want = spec["scripts"][script]["lines"]
+    if spec["scripts"][script].get("tail"):
+        got = got[-len(want):]
+    same = got == want
+    log(f"{tag} {script}: {len(want)} report lines "
+        f"{'equal to the reference' if same else 'DIFFER from the reference'}")
+    if not same:
+        diff = [f"  got  {a!r}\n  want {b!r}" for a, b in zip(got, want)
+                if a != b][:5]
+        raise AssertionError(f"{tag} {script}'s report lines differ from "
+                             f"{EXAMPLES_EXPECTED} ({len(got)} against "
+                             f"{len(want)} lines):\n" + "\n".join(diff))
+
+
+def _train_log(tag, script, out, min_fall):
+    """The (step, loss, tok/s) of the trainer's log lines; the loss at the
+    last must be below the first by more than `min_fall`, and finite."""
+    rows = [(int(f[1]), float(f[3]), float(f[9].replace(",", "")))
+            for f in (ln.split() for ln in out.splitlines())
+            if f and f[0] == "step" and len(f) == 10]
+    if len(rows) < 2 or not rows[0][1] - rows[-1][1] > min_fall:
+        raise AssertionError(f"{tag} {script}: the loss did not fall by "
+                             f"more than {min_fall} ({rows}):\n"
+                             f"{out[-2000:]}")
+    return rows
+
+
+def phase_examples(torch, np):
+    """Phase 13: the scripts of `examples_torch/` in child processes
+    (`_run_example`): the host reports held line for line against the
+    reference's (EXAMPLES_EXPECTED), the serving demo's kernel launches
+    on the card and its sweeps' lines, the training example's loss and
+    its launches (none). The host reports run beside the card's scripts,
+    in a thread of their own. Returns the serving demo's launches."""
+    import concurrent.futures
+    import statistics
+
+    from repro_torch.configs import get_smoke_config
+    tag = "[examples]"
+    root = Path(__file__).resolve().parent
+    spec = json.loads((root / EXAMPLES_EXPECTED).read_text())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def host_reports(tmp):
+        tel = os.path.join(tmp, "telemetry")
+        for script, args in (("quickstart", []),
+                             ("carbon_report", ["--telemetry", tel])):
+            out, _, walls[script] = _run_example(tag, script, args, 600)
+            _hold_lines(tag, script, _example_lines(out, tel, spec), spec)
+        (export,) = Path(tel).glob("proposed-*")
+        out, _, walls["telemetry_report"] = _run_example(
+            tag, "telemetry_report", [str(export)], 300)
+        _hold_lines(tag, "telemetry_report",
+                    _example_lines(out, tel, spec), spec)
+
+    def on_the_card(tmp):
+        out, served, walls["serve_cluster"] = _run_example(
+            tag, "serve_cluster", [], 600)
+        _hold_lines(tag, "serve_cluster", _example_lines(out, tmp, spec),
+                    spec)
+        layers = get_smoke_config("llama3-8b").num_layers
+        rate = next(ln for ln in out.splitlines()
+                    if ln.startswith("12 requests x 12 tokens"))
+        log(f"{tag} serve_cluster demo: {rate}; launches {served}")
+        if served["flash_attention"] != layers * 12 \
+                or served["decode_attention"] \
+                != layers * EXAMPLES_DEMO_DECODE_STEPS \
+                or served["aging_update"] or served["ssd_scan"]:
+            raise AssertionError(f"{tag} the serving demo did not run "
+                                 f"through the attention kernels as "
+                                 f"expected: {served}")
+        for name, extra, min_fall in (
+                ("train_small", [], EXAMPLES_TRAIN_MIN_FALL),
+                ("train_small --big", ["--big"], 0.0)):
+            out, trained, walls[name] = _run_example(
+                tag, "train_small",
+                ["--steps", str(EXAMPLES_TRAIN_STEPS), "--ckpt-dir",
+                 os.path.join(tmp, name.replace(" ", "")), *extra], 600)
+            rows = _train_log(tag, name, out, min_fall)
+            params = next(ln for ln in out.splitlines()
+                          if ln.startswith("arch="))
+            step_ms = [8 * 128 / r * 1e3 for _, _, r in rows[1:]]
+            log(f"{tag} {name}: {params}; loss {rows[0][1]:.4f} at step "
+                f"{rows[0][0]} -> {rows[-1][1]:.4f} at step {rows[-1][0]}; "
+                f"step {statistics.median(step_ms):.2f} ms (median of the "
+                f"log lines after the first); launches {trained}")
+            if any(trained.values()):
+                raise AssertionError(f"{tag} {name} launched a kernel: "
+                                     f"{trained}")
+        return served
+
+    tmp = tempfile.mkdtemp(prefix="examples-")
+    try:
+        # leaving the pool waits for the host reports, whatever happened
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            host = pool.submit(host_reports, tmp)
+            served = on_the_card(tmp)
+            host.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"{tag} walls: " + ", ".join(f"{k} {v:.1f} s"
+                                    for k, v in walls.items())
+        + f"; card: {smi}")
+    log(f"{tag} phase in {wall:.1f} s (budget {EXAMPLES_BUDGET_S:.0f})")
+    if wall > EXAMPLES_BUDGET_S:
+        raise AssertionError(f"{tag} the phase took {wall:.1f} s, over its "
+                             f"budget of {EXAMPLES_BUDGET_S:.0f} s")
+    return served
 
 
 def _nbytes(t) -> int:
@@ -2739,6 +2979,9 @@ def main() -> int:
     ssd_by_path["distributed-llama3-8b"] = spread["ssd_scan"]
     for name, paths in attention_by_path.items():
         paths["distributed-llama3-8b"] = spread[name]
+    served = phase_examples(torch, np)
+    for name, paths in attention_by_path.items():
+        paths["example-serve-cluster"] = served[name]
     launches["aging_update"] = sum(by_path.values())
     for name, paths in attention_by_path.items():
         launches[name] = sum(paths.values())

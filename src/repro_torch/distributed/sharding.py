@@ -34,8 +34,9 @@ import math
 
 import torch
 from torch import nn
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
 
@@ -273,11 +274,64 @@ def implicit_replication():
         dispatcher._allow_implicit_replication = before
 
 
-def _pinned(x: torch.Tensor) -> torch.Tensor:
+def head_layout(mesh, batch: int, heads: int):
+    """(mesh dims the batch is split over, the `model` mesh dim the heads
+    are split over or None) for a per-head op on `mesh` (attention, the
+    SSD scan): the batch over (`pod`, `data`) where they divide it, the
+    heads over `model` where it divides them; every other mesh dim holds
+    them whole."""
+    names = mesh.mesh_dim_names
+    bax = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    if not bax or batch % math.prod(mesh.size(i) for i in bax):
+        bax = []
+    model = names.index("model") if "model" in names else None
+    if model is not None and heads % mesh.size(model):
+        model = None
+    return bax, model
+
+
+def rows_times(x: torch.Tensor, *weights: torch.Tensor) -> tuple:
+    """`x @ w` for each of `weights`; on a DTensor `x` with a leading dim
+    after the first split (a length-sharded cache; its last dim whole),
+    on each device's rows of `x` (`local_map`), each weight gathered
+    whole, the products split as `x`, the weights' gradients pending sums
+    over the mesh dims that split `x`. DTensor would flatten the leading
+    dims for the product, which torch 2.11 refuses there."""
+    if not isinstance(x, DTensor) or not any(
+            isinstance(p, Shard) and 0 < p.dim < x.dim() - 1
+            for p in x.placements):
+        return tuple(x @ w for w in weights)
+    mesh, rows = x.device_mesh, tuple(x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                 for p in rows)
+    return local_map(
+        lambda xl, *ws: tuple(xl @ w for w in ws),
+        out_placements=(rows,) * len(weights),
+        in_placements=(rows, *(whole,) * len(weights)),
+        in_grad_placements=(rows, *(grad,) * len(weights)),
+        device_mesh=mesh, redistribute_inputs=True)(x, *weights)
+
+
+def per_device(fn, x: torch.Tensor) -> torch.Tensor:
+    """`fn(x)`; on a DTensor, `fn` of each device's shard (`local_map`),
+    the result laid out as `x`. For ops that keep the sharded dims as they
+    are (a pad of a replicated dim), where a DTensor rule would reshard or
+    has a fault (torch 2.11's `constant_pad_nd` on a 2-D mesh gives a
+    layout of one placement, which the next redistribution cannot read)."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    layout = tuple(x.placements)
+    return local_map(fn, out_placements=(layout,), in_placements=(layout,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def pinned(x: torch.Tensor) -> torch.Tensor:
     """A DTensor as it is, its gradient laid out as it in the backward
     pass (a redistribution to its own placements moves nothing forward and
     redistributes the gradient backward), so that a reshape's backward
-    meets the layout its forward had."""
+    meets the layout its forward had, and a gradient that comes back as a
+    pending sum where `x` was whole is reduced there (Megatron's `f`)."""
     return x.redistribute(x.device_mesh, x.placements)
 
 
@@ -295,7 +349,7 @@ def split_last(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
         x = x.redistribute(x.device_mesh, [
             Replicate() if i in split else p
             for i, p in enumerate(x.placements)])
-    return _pinned(x.reshape(*x.shape[:-1], n, d))
+    return pinned(x.reshape(*x.shape[:-1], n, d))
 
 
 def merge_last(x: torch.Tensor) -> torch.Tensor:
@@ -316,4 +370,4 @@ def merge_last(x: torch.Tensor) -> torch.Tensor:
              for p in x.placements]
     if fixed != list(x.placements):
         x = x.redistribute(x.device_mesh, fixed)
-    return _pinned(x.reshape(shape))
+    return pinned(x.reshape(shape))

@@ -6,6 +6,11 @@ terms per device (the counterpart of `repro.launch.dryrun`).
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out experiments/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-2.7b,zamba2-7b --shape train_4k --mesh both --layers 2
+
+`--arch` and `--shape` take comma-separated lists. `--layers N` cuts each
+model's depth (`cut_depth`) and counts the cut step directly: a quick
+check that a layout runs, whose counts are not the full model's.
 
 It computes on no device. Parameters, optimizer state, caches and inputs
 are DTensors whose local shards are `meta` tensors, on a mesh over a fake
@@ -64,6 +69,20 @@ def resolve_config(arch: str, shape_name: str,
                                   seq_parallel=True, zero1=True,
                                   pin_cache_sharding=True, swa_ring=True)
     return cfg
+
+
+def cut_depth(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """`cfg` with `layers` layers: the encoder-decoder `layers` on each
+    side, the hybrid whole groups of Mamba2 layers (`layers` //
+    `hybrid_period`, at least one) and its remainder."""
+    if cfg.family == "hybrid":
+        groups = max(1, layers // cfg.hybrid_period)
+        return dataclasses.replace(cfg, num_layers=groups * cfg.hybrid_period
+                                   + cfg.hybrid_remainder)
+    if cfg.is_encdec:
+        return dataclasses.replace(cfg, num_layers=layers,
+                                   encoder_layers=layers)
+    return dataclasses.replace(cfg, num_layers=layers)
 
 
 def front_len(cfg: ModelConfig, shape: InputShape) -> int:
@@ -374,7 +393,8 @@ def _extrapolated_cost(arch, shape_name, mesh, cfg) -> dict:
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool,
-            unrolled_cost: bool = True, variant: str = "baseline") -> dict:
+            unrolled_cost: bool = True, variant: str = "baseline",
+            layers: int | None = None) -> dict:
     """Dry-run one (arch x shape x mesh) in a fake process group of the
     mesh's size, started here and destroyed before returning.
 
@@ -384,12 +404,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
     temporaries) and a direct count of the cost. With `unrolled_cost`, on
     the single-pod mesh, the cost is the reference's extrapolation from
     reduced depths (`_extrapolated_cost`, timed in `unrolled_compile_s`)
-    instead, as the reference's records give it."""
+    instead, as the reference's records give it. With `layers`, the
+    model is cut to that depth (`cut_depth`) and counted directly."""
     shape = INPUT_SHAPES[shape_name]
     with fake_group(512 if multi_pod else 256):
         mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
         chips = mesh.size()
         cfg = resolve_config(arch, shape_name, variant)
+        if layers is not None:
+            cfg, unrolled_cost = cut_depth(cfg, layers), False
         t0 = time.time()
         built = build_step(arch, shape_name, mesh, cfg)
         t_lower = time.time() - t0
@@ -458,11 +481,14 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="JSON output directory")
     ap.add_argument("--variant", default="baseline",
                     choices=["baseline", "optimized"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each model to this depth (cut_depth)")
     args = ap.parse_args(argv)
 
-    archs = all_arch_names() if args.all or not args.arch else [args.arch]
+    archs = (all_arch_names() if args.all or not args.arch
+             else args.arch.split(","))
     shapes = (list(INPUT_SHAPES) if args.all or not args.shape
-              else [args.shape])
+              else args.shape.split(","))
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
 
@@ -474,7 +500,7 @@ def main(argv=None) -> None:
                        f"{'2x16x16' if multi else '16x16'}")
                 try:
                     rec = run_one(arch, shape_name, multi,
-                                  variant=args.variant)
+                                  variant=args.variant, layers=args.layers)
                 except Exception as e:  # noqa: BLE001 — report and continue
                     failures.append((tag, repr(e)))
                     print(f"FAIL  {tag}: {e}", flush=True)

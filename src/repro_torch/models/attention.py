@@ -22,9 +22,10 @@ import math
 
 import torch
 import torch.distributed._functional_collectives as funcol
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.decode_attention.ops import decode_bhd
 from repro_torch.kernels.flash_attention.ops import attention_bhsd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -74,21 +75,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _head_layout(mesh, batch: int, heads: int):
-    """(mesh dims the batch is split over, the `model` mesh dim the query
-    heads are split over or None) for an attention on `mesh`: the batch
-    over (`pod`, `data`) where they divide it, the heads over `model`
-    where it divides them; every other mesh dim holds them whole."""
-    names = mesh.mesh_dim_names
-    bax = [i for i, n in enumerate(names) if n in ("pod", "data")]
-    if not bax or batch % math.prod(mesh.size(i) for i in bax):
-        bax = []
-    model = names.index("model") if "model" in names else None
-    if model is not None and heads % mesh.size(model):
-        model = None
-    return bax, model
-
-
 def _kv_heads_of(k, first: int, count: int, group: int):
     """The KV heads (dim 2) that query heads first .. first + count - 1
     read, with `group` query heads to a KV head, as a GQA layout of their
@@ -118,7 +104,7 @@ def _on_local_heads(fn, q, k, v, pos=None):
         return fn(q, k, v) if pos is None else fn(q, k, v, pos)
     mesh = q.device_mesh
     heads, group = q.shape[2], q.shape[2] // k.shape[2]
-    bax, model = _head_layout(mesh, q.shape[0], heads)
+    bax, model = shd.head_layout(mesh, q.shape[0], heads)
     split = mesh.size(model) if model is not None else 1
 
     def layout(heads_split: bool):
@@ -143,8 +129,14 @@ def _on_local_heads(fn, q, k, v, pos=None):
         args.append(pos)
         placements.append(layout(False) if pos.dim() else
                           (Replicate(),) * mesh.ndim)
+    # each device reads only its query heads' KV heads: the keys' and
+    # values' gradients are pending sums over a `model` axis that splits q
+    kv_grad = tuple(Partial() if split > 1 and i == model else p
+                    for i, p in enumerate(layout(False)))
+    grads = [placements[0], kv_grad, kv_grad, *placements[3:]]
     return local_map(local, out_placements=(layout(True),),
-                     in_placements=tuple(placements), device_mesh=mesh,
+                     in_placements=tuple(placements),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
                      redistribute_inputs=True)(*args)
 
 
@@ -380,7 +372,7 @@ def decode_attention_length_sharded(q, k_cache, v_cache, pos, window=0,
         return decode_attention(q, k_cache, v_cache, pos, window, scale,
                                 use_kernel)
     model = mesh.mesh_dim_names.index("model")
-    bax, _ = _head_layout(mesh, q.shape[0], 1)
+    bax, _ = shd.head_layout(mesh, q.shape[0], 1)
     group = (mesh, model)
 
     def layout(s_dim=None):

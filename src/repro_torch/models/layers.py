@@ -65,7 +65,8 @@ def _embed_sharded(tokens: torch.Tensor, table: DTensor) -> DTensor:
     up the tokens that fall in its rows of the vocab-sharded table and
     gives zeros for the rest, so the rows (B, S, D) are a pending sum over
     the mesh dims that split the vocab, which the residual's layout then
-    reduces; the tokens keep their batch split."""
+    reduces; the tokens keep their batch split. The table's gradient is
+    a pending sum over the mesh dims that split the batch."""
     mesh = table.device_mesh
     vocab = [i for i, p in enumerate(table.placements)
              if isinstance(p, Shard) and p.dim == 0]
@@ -79,6 +80,9 @@ def _embed_sharded(tokens: torch.Tensor, table: DTensor) -> DTensor:
     tab_in = tuple(Shard(0) if i in vocab else Replicate()
                    for i in range(mesh.ndim))
     out = tuple(Partial() if i in vocab else p for i, p in enumerate(tok_in))
+    tab_grad = tuple(Shard(0) if i in vocab else Partial()
+                     if isinstance(p, Shard) else Replicate()
+                     for i, p in enumerate(tok_in))
     coord = mesh.get_coordinate()
 
     def local(tok, tab):
@@ -90,7 +94,8 @@ def _embed_sharded(tokens: torch.Tensor, table: DTensor) -> DTensor:
         rows = tab[rel.clamp(0, tab.shape[0] - 1)]
         return torch.where(inside[..., None], rows, 0)
     return local_map(local, out_placements=(out,),
-                     in_placements=(tok_in, tab_in), device_mesh=mesh,
+                     in_placements=(tok_in, tab_in),
+                     in_grad_placements=(tok_in, tab_grad), device_mesh=mesh,
                      redistribute_inputs=True)(tokens, table)
 
 

@@ -22,9 +22,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -56,7 +57,11 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int, h0=None):
     h0: (B, H, P, N)   initial state (None = zeros)
 
     Returns (y (B, L, H, P) in x's dtype, h_final (B, H, P, N) float32).
+    On DTensors each device scans its own batch rows and heads
+    (`_ssd_per_device`).
     """
+    if isinstance(x, DTensor):
+        return _ssd_per_device(x, dt, a_log, b, c, chunk, h0)
     bsz, l, h, p = x.shape
     n = b.shape[-1]
     if l % chunk:
@@ -111,6 +116,40 @@ def ssd_chunked(x, dt, a_log, b, c, chunk: int, h0=None):
     return y, carry
 
 
+def _ssd_per_device(x, dt, a_log, b, c, chunk, h0):
+    """`ssd_chunked` run on each device's own batch rows and heads
+    (`local_map`): the scan is independent per (row, head), so nothing
+    crosses devices; b and c (one group, shared by every head) are whole
+    on each device, so their gradients are pending sums over the mesh dims
+    that split the heads, and a_log's over those that split the batch.
+    The batch is split over (`pod`, `data`) and the heads over `model`
+    where they divide (`sharding.head_layout`), Megatron's layout, and
+    each input's gradient is laid out as the input (`sharding.pinned`).
+    As DTensor ops, the scan's einsums flatten the sharded head dim in the
+    backward pass, which torch 2.11's reshape rule refuses."""
+    mesh = x.device_mesh
+    rows, model = shd.head_layout(mesh, x.shape[0], x.shape[2])
+
+    def layout(row, head, other=Replicate()):
+        return tuple(row if i in rows else head if i == model else other
+                     for i in range(mesh.ndim))
+    xs = layout(Shard(0), Shard(2))
+    gate = layout(Shard(0), Replicate())
+    places = [xs, xs, layout(Replicate(), Shard(0)), gate, gate]
+    grads = [xs, xs, layout(Partial(), Shard(0)),
+             layout(Shard(0), Partial()), layout(Shard(0), Partial())]
+    args = [shd.pinned(t) for t in (x, dt, a_log, b, c)]
+    if h0 is not None:
+        args.append(shd.pinned(h0))
+        places.append(layout(Shard(0), Shard(1)))
+        grads.append(places[-1])
+    return local_map(
+        lambda *t: ssd_chunked(*t[:5], chunk, *t[5:]),
+        out_placements=(xs, layout(Shard(0), Shard(1))),
+        in_placements=tuple(places), in_grad_placements=tuple(grads),
+        device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
 def ssd_decode_step(state, x, dt, a_log, b, c):
     """One-token recurrent update.
 
@@ -135,16 +174,22 @@ def _causal_conv(seq: torch.Tensor, kernel: torch.Tensor,
     `lax.conv_general_dilated`). seq (B, L, C), kernel (W, C).
     prepend: (B, W-1, C) history (decode) or None (zero left-pad).
     Returns (B, L, C), contiguous, in seq's dtype. On DTensors each device
-    convolves its own channels (and batch rows) of the whole sequence."""
+    convolves its own channels (and batch rows) of the whole sequence; the
+    taps' gradient is a pending sum over the mesh dims that split the
+    batch."""
     if isinstance(seq, DTensor):
         mesh = seq.device_mesh
         rows = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1
                      else p for p in seq.placements)
         taps = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2
                      else Replicate() for p in rows)
+        taps_grad = tuple(Partial() if p == Shard(0) else t
+                          for p, t in zip(rows, taps))
+        hist = None if prepend is None else rows
         return local_map(
             _causal_conv, out_placements=(rows,),
-            in_placements=(rows, taps, None if prepend is None else rows),
+            in_placements=(rows, taps, hist),
+            in_grad_placements=(rows, taps_grad, hist),
             device_mesh=mesh, redistribute_inputs=True)(seq, kernel, prepend)
     w = kernel.shape[0]
     full = seq.transpose(1, 2)                               # (B, C, L)

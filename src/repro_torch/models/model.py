@@ -410,7 +410,8 @@ class Model(nn.Module):
         positions = torch.arange(s_total, device=self.device)[None, :]
         h, aux = self._stack_forward(h, positions)
         logits = self._head(h)
-        labels_full = F.pad(tokens, (n_front, 0))
+        labels_full = shd.per_device(lambda t: F.pad(t, (n_front, 0)),
+                                     tokens)
         mask = (positions >= n_front).float().expand(labels_full.shape)
         return (cross_entropy_loss(logits[:, :-1], labels_full[:, 1:],
                                    mask[:, 1:]) + MOE_AUX_COEF * aux)
@@ -526,15 +527,21 @@ class Model(nn.Module):
         return torch.cat([c_kv, k_rope], dim=-1)
 
     def _mla_kv_from_latent(self, latent, ap):
-        """Expand cached latent to per-head K (nope+rope) and V."""
+        """Expand cached latent to per-head K (nope+rope) and V. On a mesh
+        a length-sharded latent stays so: each device expands its own rows
+        with the up-projections gathered whole (`rows_times`), K and V
+        length-sharded as the latent. That is the reshard GSPMD makes at
+        the dry run's shapes: it all-gathers the smaller operand, here the
+        weights (2 x 1.3 MB against the latent's 134 MB a device at
+        decode_32k)."""
         cfg = self.cfg
         b, s, _ = latent.shape
         c_kv, k_rope = torch.split(latent,
                                    [cfg.kv_lora_rank, cfg.qk_rope_dim],
                                    dim=-1)
-        k_nope = shd.split_last(c_kv @ ap["k_up"], cfg.num_heads,
-                                cfg.qk_nope_dim)
-        v = shd.split_last(c_kv @ ap["v_up"], cfg.num_heads, cfg.v_head_dim)
+        k_nope, v = shd.rows_times(c_kv, ap["k_up"], ap["v_up"])
+        k_nope = shd.split_last(k_nope, cfg.num_heads, cfg.qk_nope_dim)
+        v = shd.split_last(v, cfg.num_heads, cfg.v_head_dim)
         k_rope = k_rope[:, :, None, :].expand(b, s, cfg.num_heads,
                                               cfg.qk_rope_dim)
         return torch.cat([k_nope, k_rope], dim=-1), v

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.config import ModelConfig
 
 
@@ -157,21 +158,30 @@ def moe_ffn_sharded(x: torch.Tensor, params: dict, cfg: ModelConfig
     rep = layout(Replicate(), Replicate())
     f_in = Shard(2) if f_ok else Replicate()
 
+    # with d_ff split, each device's products are a pending sum over
+    # `model`, and so are the gradients of x (reduced as it enters, as
+    # Megatron's `f`: `pinned`) and the router; the aux loss, which each
+    # device computes whole, is split into equal parts there so that its
+    # gradient is counted once
+    part = Partial() if f_ok else Replicate()
+    n_part = mesh.size(model) if f_ok else 1
+
     def local_fn(x_l, router, wg, wu, wd):
         y, aux = moe_ffn(x_l, {"router": router, "w_gate": wg, "w_up": wu,
                                "w_down": wd}, cfg)
-        return y, aux / n_batch
+        return y, aux / (n_batch * n_part)
+    w_down = layout(Replicate(), Shard(1) if f_ok else Replicate())
 
     y, aux = local_map(
         local_fn,
-        out_placements=(layout(Shard(0), Partial() if f_ok else Replicate()),
-                        layout(Partial(), Replicate())),
+        out_placements=(layout(Shard(0), part), layout(Partial(), part)),
         in_placements=(x_in, rep, layout(Replicate(), f_in),
-                       layout(Replicate(), f_in),
-                       layout(Replicate(), Shard(1) if f_ok
-                              else Replicate())),
+                       layout(Replicate(), f_in), w_down),
+        in_grad_placements=(layout(Shard(0), part), layout(Partial(), part),
+                            layout(Partial(), f_in), layout(Partial(), f_in),
+                            layout(Partial(), w_down[model])),
         device_mesh=mesh, redistribute_inputs=True,
-    )(x, params["router"], params["w_gate"], params["w_up"],
+    )(shd.pinned(x), params["router"], params["w_gate"], params["w_up"],
       params["w_down"])
     return y.redistribute(mesh, x_in), aux.redistribute(mesh, rep)
 

@@ -1236,3 +1236,84 @@ def test_train_resume_through_the_store_on_cuda(cuda_device, tmp_path):
     assert all(m.device.type == "cuda" for m in state.mu.values())
     _, tail = run(model, state, batches[2:])
     np.testing.assert_allclose(head + tail, whole, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------- #
+# F3: the distribution layer on the card's torch (2.11), whose DTensor
+# refused these steps before the repair; counted on `meta` DTensors over
+# a fake process group, so they hold on whatever torch the card has. One
+# step for each failure; `chip_smoke.py` runs the whole F3 set on both
+# meshes
+# --------------------------------------------------------------------- #
+F3_STEPS = [("llama3-8b", "train_4k"), ("mamba2-2.7b", "train_4k"),
+            ("minicpm3-4b", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", F3_STEPS)
+def test_f3_step_on_a_fake_mesh(cuda_device, arch, shape):
+    """The step at 2 layers (`dryrun.cut_depth`) on the (16, 16) production
+    mesh: a train step's forward, backward and AdamW (torch 2.11 failed
+    the label pad's layout, then Mamba2's scan's einsum backward), or
+    MLA's decode step (2.11 refused flattening (B, S) with S sharded)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    with dryrun.fake_group(256):
+        mesh = mesh_lib.make_production_mesh()
+        cfg = dryrun.cut_depth(dryrun.resolve_config(arch, shape), 2)
+        cost = dryrun.step_cost(arch, shape, mesh, cfg)
+    assert cost["flops"] > 0 and cost["peak_bytes"] > 0
+    assert cost["coll"]["total"] > 0
+
+
+def test_f3_mla_latent_expansion_under_a_mesh(cuda_device):
+    """MLA's K and V expanded from a length-sharded latent (S over
+    `model`): each device expands its own rows with the up-projections
+    gathered whole (`sharding.rows_times`), so K and V keep the latent's
+    split of S (torch 2.11 refused DTensor's flatten of (B, S) with S
+    split)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = dataclasses.replace(get_smoke_config("minicpm3-4b"),
+                              num_heads=32)
+    with dryrun.fake_group(256):
+        mesh = mesh_lib.make_production_mesh()
+        model = Model(cfg, device="meta")
+        shd.distribute(model, mesh, shd.param_specs(model, mesh))
+        latent = shd.distribute(
+            {"x": torch.empty(32, 64, cfg.kv_lora_rank + cfg.qk_rope_dim,
+                              dtype=torch.bfloat16, device="meta")},
+            mesh, {"x": shd.P("data", "model", None)})["x"]
+        assert latent.placements == (Shard(0), Shard(1))
+        k, v = model._mla_kv_from_latent(latent, model.layers[0].attn)
+    assert k.shape == (32, 64, 32, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    assert v.shape == (32, 64, 32, cfg.v_head_dim)
+    assert k.placements == v.placements == (Shard(0), Shard(1))
+
+
+def test_serve_cluster_demo_launches_the_attention_kernels(cuda_device,
+                                                           capsys):
+    """`examples_torch/serve_cluster.py`'s serving demo on the card: the
+    smoke Llama-3-8B prefills each of its 12 requests through
+    flash_attention (once per layer) and decodes through decode_attention
+    once per layer and step: 12 requests of 12 tokens in waves of 4
+    slots, each prefill giving the first token, are 3 x 11 steps."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples_torch" \
+        / "serve_cluster.py"
+    spec = importlib.util.spec_from_file_location("serve_cluster_example",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    layers = get_smoke_config("llama3-8b").num_layers
+    before = fa_ops.KERNEL.launches, dec_ops.KERNEL.launches
+    mod.serve_demo()
+    flash = fa_ops.KERNEL.launches - before[0]
+    decode = dec_ops.KERNEL.launches - before[1]
+    out = capsys.readouterr().out
+    assert flash == layers * 12
+    assert decode == layers * 3 * 11
+    assert "12 requests x 12 tokens" in out and "host CPU: active" in out

@@ -548,6 +548,9 @@ GLOO = textwrap.dedent("""
     import torch.multiprocessing as mp
 
 
+    TRAINED = %r
+
+
     def worker(rank, port, path):
         from torch.distributed.device_mesh import init_device_mesh
         from repro_torch.configs import get_smoke_config
@@ -633,6 +636,57 @@ GLOO = textwrap.dedent("""
                         abs(loss1.full_tensor().item() - loss0),
                         sorted({str(t.placements) for key, t in cache.items()
                                 if key != "pos"})]
+
+        # the loss and every gradient of each trained family against the
+        # plain model's (the per-device ops' gradients: F3's scan and label
+        # pad, F4's embedding, conv, attention and MoE), then MLA's latent
+        # gathered along S before its up-projections (a decode step)
+        def grads_of(model, batch):
+            model.zero_grad()
+            with shd.implicit_replication():
+                loss = model.loss(batch)
+                loss.backward()
+            return loss, {n: p.grad for n, p in model.named_parameters()}
+
+        def full(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+        for arch in TRAINED:
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      dtype="float32")
+            model = Model(cfg, device="cpu", seed=0).requires_grad_(True)
+            tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen)
+            batch = {"tokens": tokens}
+            with_embeds = cfg.frontend != "none"
+            if with_embeds:
+                batch["embeds"] = torch.randn(
+                    4, cfg.frontend_tokens or 16, cfg.d_model, generator=gen)
+            loss0, g0 = grads_of(model, batch)
+            shd.distribute(model, mesh, shd.param_specs(model, mesh))
+            spread = {"tokens": put({"t": tokens}, tok_spec)["t"]}
+            if with_embeds:
+                spread["embeds"] = put({"e": batch["embeds"]}, {
+                    "e": shd.P("data", None, None)})["e"]
+            loss1, g1 = grads_of(model, spread)
+            out[arch] = [abs(full(loss1).item() - loss0.item()),
+                         max((full(g1[n]) - g).abs().max().item()
+                             / (1e-6 + g.abs().max().item())
+                             for n, g in g0.items())]
+
+        cfg = dataclasses.replace(get_smoke_config("minicpm3-4b"),
+                                  dtype="float32")
+        model = Model(cfg, device="cpu", seed=0)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen)
+        _, cache = model.prefill(tokens, 40, use_kernel=False)
+        tok = tokens[:, -1:]
+        logits0, _ = model.decode_step(cache, tok, use_kernel=False)
+        shd.distribute(model, mesh, shd.param_specs(model, mesh))
+        spread = put(cache, shd.cache_specs(cfg, cache, mesh))
+        logits1, _ = model.decode_step(spread, put({"t": tok}, tok_spec)["t"],
+                                       use_kernel=False)
+        out["mla_decode"] = [(full(logits1) - logits0).abs().max().item(),
+                             logits0[..., :cfg.vocab_size].abs().max().item(),
+                             str(spread["latent"][0].placements)]
         if rank == 0:
             with open(path, "w") as fh:
                 json.dump(out, fh)
@@ -645,6 +699,10 @@ GLOO = textwrap.dedent("""
 """)
 
 
+TRAINED = ("llama3-8b", "granite-moe-3b-a800m", "minicpm3-4b", "mamba2-2.7b",
+           "zamba2-7b", "internvl2-2b", "seamless-m4t-large-v2")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -655,7 +713,7 @@ def _free_port() -> int:
 def gloo_values(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("gloo")
     script, path = tmp / "gloo_values.py", tmp / "out.json"
-    script.write_text(GLOO)
+    script.write_text(GLOO % (TRAINED,))
     proc = subprocess.run(
         [sys.executable, str(script), str(_free_port()), str(path)],
         capture_output=True, text=True, timeout=600,
@@ -685,3 +743,26 @@ def test_sharded_model_equals_plain(gloo_values):
     assert err <= 1e-5 + 1e-5 * scale, gloo_values["model"]
     assert loss_err <= 1e-5
     assert any(repr(Shard(2)) in lay for lay in layouts), layouts
+
+
+@pytest.mark.parametrize("arch", TRAINED)
+def test_sharded_loss_and_grads_equal_plain(gloo_values, arch):
+    """Each family's smoke model laid out on the (2, 2) mesh: float32 loss
+    within 1e-5 of the plain model's, every gradient within 1e-4 of its
+    largest entry. Holds the ops that run per device under `local_map`,
+    whose inputs' gradients are pending sums where the op splits work that
+    those inputs feed whole (the embedding table, the conv taps, the keys
+    and values, the MoE's input and weights, the scan's b and c), and the
+    vision model's label pad (F3)."""
+    loss_err, grad_err = gloo_values[arch]
+    assert loss_err <= 1e-5, gloo_values[arch]
+    assert grad_err <= 1e-4, gloo_values[arch]
+
+
+def test_mla_decode_on_a_length_sharded_latent(gloo_values):
+    """MLA's latent cache length-sharded over `model`, gathered along S
+    before its up-projections: float32 decode logits within 1e-5 of the
+    plain model's."""
+    err, scale, layout = gloo_values["mla_decode"]
+    assert err <= 1e-5 + 1e-5 * scale, gloo_values["mla_decode"]
+    assert repr(Shard(1)) in layout, layout

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of `src/repro_torch` or
-`benchmarks_torch`, and not `chip_smoke.py`, imports `jax` or the
-reference package `repro`; and without CUDA the port's GPU entry points
-(the fleet engine, `launch.serve`, `launch.train`, `chip_smoke.py`)
+"""The port stands alone: no module of `src/repro_torch`,
+`benchmarks_torch` or `examples_torch`, and not `chip_smoke.py`, imports
+`jax` or the reference package `repro`; and without CUDA the port's GPU
+entry points (the fleet engine, `launch.serve`, `launch.train`, the
+examples `serve_cluster.py` and `train_small.py`, `chip_smoke.py`)
 refuse to run rather than fall back to the CPU."""
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.sim import ExperimentConfig, run_experiment
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
     + sorted((REPO / "benchmarks_torch").glob("*.py")) \
+    + sorted((REPO / "examples_torch").glob("*.py")) \
     + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -97,6 +99,27 @@ def test_train_without_cuda_refuses():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "loss" not in proc.stdout
+
+
+@pytest.mark.parametrize("script,args,result", [
+    ("serve_cluster.py", [], "requests x"),
+    ("train_small.py", ["--steps", "1"], "loss"),
+])
+def test_example_without_cuda_refuses(script, args, result, tmp_path):
+    """`examples_torch/serve_cluster.py` and `train_small.py` run on the
+    card unless `--device cpu`: with no CUDA they raise before serving or
+    training anything."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "examples_torch" / script), *args,
+         *(["--ckpt-dir", str(tmp_path)] if script == "train_small.py"
+           else [])],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert result not in proc.stdout
+    assert not any(tmp_path.iterdir())
 
 
 def _run_smoke(cwd: Path, **env):
