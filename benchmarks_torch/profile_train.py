@@ -10,10 +10,10 @@ tokens of `SyntheticTokens`, seed 0; the trainer's defaults) and, after
 two untimed steps, times `--steps` steps, each split by CUDA events into
 the loss's forward pass, its backward pass (where remat recomputes each
 layer's forward) and `apply_updates`. Then it profiles one step under
-`torch.profiler` and prints its wall, device time, idle share, launches
-and the kernels that take the most device time
-(`profile_serve.report`). Prints the card's name and power limit. Needs
-CUDA; exits 1 without it.
+`torch.profiler` and prints its wall, summed kernel time, idle share
+(from the union of the kernels' intervals), launches and the kernels
+that take the most device time (`report`). Prints the card's name and
+power limit. Needs CUDA; exits 1 without it.
 """
 from __future__ import annotations
 
@@ -26,6 +26,42 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+TOP = 10            # kernels listed by device time
+
+
+def report(prof, wall: float, label: str, per: int, unit: str) -> None:
+    """The profiled window's wall, launches, summed kernel time, idle
+    share (1 - the union of the kernels' intervals over the wall) and
+    the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+
+    from bench.trace import merge
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(getattr(e, key) for e in kernels)
+    busy_ns = sum(b - a for a, b in merge(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA))
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    print(f"[{label}] wall {wall * 1e3:.2f} ms (profiler on), "
+          f"{wall / per * 1e3:.2f} ms per {unit}; kernel launches "
+          f"{launches} ({launches / per:.1f} per {unit})")
+    if device_us <= 0:
+        print(f"[{label}] device time: not measured (no device events "
+              f"recorded)")
+        return
+    print(f"[{label}] kernel time {device_us / 1e3:.2f} ms (summed); idle "
+          f"share {1.0 - busy_ns / 1e9 / wall:.4f}")
+    for e in sorted(kernels, key=lambda e: -getattr(e, key))[:TOP]:
+        us = getattr(e, key)
+        print(f"  {us / 1e3:9.3f} ms {100 * us / device_us:5.1f}% "
+              f"{e.count:6d}x  {e.key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -36,12 +72,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_train: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT /
-                                                      "benchmarks_torch")]
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import TRAIN_BATCH, TRAIN_LAYERS, TRAIN_SEQ
-    from profile_serve import report
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.models import Model

@@ -24,6 +24,27 @@ place. For the
 ssm family the cache holds W-1 rows of conv history per slot, where the
 reference's engine sizes it from a one-token prefill and holds one
 (ROADMAP R6).
+
+Tracing: set `engine.trace` to a `TelemetryHub` of its own (not the
+core manager's `telemetry`, whose probes match the reference's) and the
+engine records spans into it, on `time.perf_counter_ns`:
+
+- `step` (its `n`: the slots active after admission), with children
+  `periodic`, `admit`, `select`, `wait` (the host blocked on the
+  device), `decode` (`n`: the active slots) and `retire`;
+- `admit`, one per admitted request, with children `upload`, `prefill`
+  (`n`: the prompt's tokens), `splice`, `select` and `wait`;
+- `queued`, a root, from a request's `submit` to the start of its
+  `admit` (`n`: the prompt's tokens);
+- `cpu_task/<task>` around each Table-2 task, a child of the span open
+  at the time.
+
+Spans of one request carry its id (`req`). On CUDA `prefill` and
+`decode` carry a pair of device events (`Span.device_ms()`, read once
+the work is done; nothing synchronizes while serving). Counters:
+`steps`, `admissions`, `prefill_tokens`, `decode_calls`,
+`decode_tokens`, which `prometheus_text()` lists with `spans_dropped`.
+With `trace` None each site costs one `is not None` test.
 """
 from __future__ import annotations
 
@@ -47,6 +68,7 @@ class Request:
     max_new_tokens: int
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    submitted_ns: int | None = None     # stamped only while tracing
 
 
 class InferenceEngine:
@@ -84,6 +106,7 @@ class InferenceEngine:
         # Live serving shares the simulator's telemetry surface: the same
         # hub type, the same probes, exported via `prometheus_text()`.
         self.telemetry = telemetry
+        self.trace: TelemetryHub | None = None   # the engine's own spans
         self.core_manager = CoreManager(num_host_cores, policy=policy,
                                         rng=np.random.default_rng(0),
                                         telemetry=telemetry)
@@ -122,46 +145,99 @@ class InferenceEngine:
     def _now(self) -> float:
         return self.clock() - self._t0
 
-    def _cpu_task(self, name: str) -> None:
+    def _cpu_task(self, name: str, req_id: int = -1) -> None:
         """Account one Table-2 host task against the core manager."""
+        tr = self.trace
+        if tr is not None:
+            sp = tr.begin(f"cpu_task/{name}", req_id)
         task = self._task_ids.new(name)
         t = self._now()
         self.core_manager.assign(task.task_id, t)
         self.core_manager.release(task.task_id, t + task.duration_s)
+        if tr is not None:
+            tr.end(sp)
 
     def _periodic(self) -> None:
         t = self._now()
         if t - self._last_idle_check >= self.core_manager.idling_period_s:
+            tr = self.trace
+            if tr is not None:
+                sp = tr.begin("periodic")
             self.core_manager.periodic(t)
+            if tr is not None:
+                tr.end(sp)
             self._last_idle_check = t
 
+    def _device_span(self, tr: TelemetryHub, name: str, req: int = -1,
+                     n: int = 0):
+        """Begin span `name`; on CUDA, record its first device event on
+        the current stream (`_end_device_span` records the second)."""
+        sp = tr.begin(name, req, n)
+        if self.device.type == "cuda":
+            sp.dev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            sp.dev[0].record(torch.cuda.current_stream(self.device))
+        return sp
+
+    def _end_device_span(self, tr: TelemetryHub, sp) -> None:
+        if sp.dev is not None:
+            sp.dev[1].record(torch.cuda.current_stream(self.device))
+        tr.end(sp)
+
     def submit(self, prompt: list[int], max_new_tokens: int = 32) -> int:
-        self._cpu_task("submit")
         req = Request(self._next_id, list(prompt), max_new_tokens)
+        if self.trace is not None:
+            req.submitted_ns = time.perf_counter_ns()
+        self._cpu_task("submit", req.req_id)
         self._next_id += 1
         self.pending.append(req)
         return req.req_id
 
     def _admit(self) -> None:
+        tr = self.trace
         for i in range(self.max_batch):
             if self.slots[i] is not None or not self.pending:
                 continue
             req = self.pending.pop(0)
-            self._cpu_task("alloc_memory")
+            rid, n_prompt = req.req_id, len(req.prompt)
+            if tr is not None:
+                adm = tr.begin("admit", rid)
+                if req.submitted_ns is not None:
+                    tr.record("queued", req.submitted_ns, adm.start, rid,
+                              n_prompt)
+                tr.inc("admissions")
+                tr.inc("prefill_tokens", n_prompt)
+            self._cpu_task("alloc_memory", rid)
+            if tr is not None:
+                sp = tr.begin("upload", rid)
             toks = torch.tensor([req.prompt], dtype=torch.int32,
                                 device=self.device)
+            if tr is not None:
+                tr.end(sp)
+                sp = self._device_span(tr, "prefill", rid, n_prompt)
             logits, pcache = self._prefill_fn(toks)
+            if tr is not None:
+                self._end_device_span(tr, sp)
+                sp = tr.begin("splice", rid)
             # splice the single-row prefill cache into slot i; this also
             # overwrites what the slot wrote while it was inactive
             for key, big in self.cache.items():
                 if key != "pos":
                     big[:, i] = pcache[key][:, 0]
-            self.cache["pos"][i] = len(req.prompt)
+            self.cache["pos"][i] = n_prompt
+            if tr is not None:
+                sp = tr.switch(sp, "select")
             first = self._select_token(logits[:, -1])
+            if tr is not None:
+                sp = tr.switch(sp, "wait")
             req.output.append(int(first[0]))
+            if tr is not None:
+                tr.end(sp)
             self.tokens[i, 0] = first[0]
             self.slots[i] = req
             self.active_mask[i] = True
+            if tr is not None:
+                tr.end(adm)
 
     def _select_token(self, logits_row: torch.Tensor) -> torch.Tensor:
         v = self.model.cfg.vocab_size
@@ -175,19 +251,38 @@ class InferenceEngine:
     def step(self) -> list[tuple[int, int]]:
         """One engine iteration: admit pending, batched decode, retire
         finished. Returns [(req_id, new_token), ...]."""
+        tr = self.trace
+        if tr is not None:
+            top = tr.begin("step")
+            tr.inc("steps")
         self._periodic()
         self._admit()
         if not self.active_mask.any():
+            if tr is not None:
+                tr.end(top)
             return []
+        if tr is not None:
+            top.n = n_active = int(self.active_mask.sum())
+            tr.inc("decode_calls")
+            tr.inc("decode_tokens", n_active)
         self._cpu_task("start_iteration")
         active = torch.as_tensor(self.active_mask, device=self.device)
+        if tr is not None:
+            sp = self._device_span(tr, "decode", n=n_active)
         logits, self.cache = self._decode_fn(self.cache, self.tokens,
                                              active)
+        if tr is not None:
+            self._end_device_span(tr, sp)
+            sp = tr.begin("select")
         new_tokens = self._select_token(logits[:, 0])
         # every occupied slot takes its new token (one device op)
         self.tokens = torch.where(active[:, None], new_tokens[:, None],
                                   self.tokens)
+        if tr is not None:
+            sp = tr.switch(sp, "wait")
         host_tokens = new_tokens.tolist()
+        if tr is not None:
+            sp = tr.switch(sp, "retire")
         out = []
         for i, req in enumerate(self.slots):
             if req is None:
@@ -198,10 +293,13 @@ class InferenceEngine:
             hit_eos = self.eos_id is not None and tok == self.eos_id
             if len(req.output) >= req.max_new_tokens or hit_eos:
                 req.done = True
-                self._cpu_task("finish_request")
-                self._cpu_task("free_memory")
+                self._cpu_task("finish_request", req.req_id)
+                self._cpu_task("free_memory", req.req_id)
                 self.slots[i] = None
                 self.active_mask[i] = False
+        if tr is not None:
+            tr.end(sp)
+            tr.end(top)
         return out
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
@@ -240,4 +338,11 @@ class InferenceEngine:
             "host_assigns": float(m.metrics.assigns),
             "host_oversub_assigns": float(m.metrics.oversub_assigns),
         }
-        return prometheus_text(hub, extra_gauges=extra)
+        text = prometheus_text(hub, extra_gauges=extra)
+        tr = self.trace
+        if tr is not None and tr.counters:
+            # the engine's serving totals (steps, admissions, tokens) and
+            # the spans its full ring dropped
+            text += prometheus_text(
+                tr, extra_gauges={"spans_dropped": float(tr.spans_dropped)})
+        return text

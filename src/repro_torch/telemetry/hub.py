@@ -19,11 +19,17 @@ publishes into:
                               `promote` / `oversub` / `carbon_deferral`
                               / `route` / `phase`), the raw stream the
                               JSONL and Chrome-trace exporters replay.
+  * span ring               — `Span`s of a live program (the serving
+                              engine's steps, admissions, model calls
+                              and host tasks): name, start and end in
+                              `time.perf_counter_ns`, own and parent
+                              id, request id and one count, and an
+                              optional pair of device events.
 
-Everything is bounded: events and timelines are `deque(maxlen=...)`
-rings, series retain the last `max_windows` windows; overflow counts
-are kept (`events_dropped`, per-series `dropped_windows`) so truncation
-is visible, never silent.
+Everything is bounded: events, spans and timelines are
+`deque(maxlen=...)` rings, series retain the last `max_windows`
+windows; overflow counts are kept (`events_dropped`, `spans_dropped`,
+per-series `dropped_windows`) so truncation is visible, never silent.
 
 Zero-cost when disabled: producers hold `None` (or the `NULL_HUB`
 no-op) and guard every emission with one attribute test, so the
@@ -37,17 +43,20 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import math
+import time
 from typing import Any, Iterable
 
 __all__ = [
-    "Counter", "Gauge", "WindowedSeries", "Timeline", "TelemetryHub",
-    "NullHub", "NULL_HUB", "DEFAULT_MAX_EVENTS", "DEFAULT_MAX_WINDOWS",
-    "DEFAULT_TIMELINE_MAXLEN", "HIST_BINS", "hist_bin_index",
-    "hist_bin_upper",
+    "Counter", "Gauge", "WindowedSeries", "Timeline", "Span",
+    "TelemetryHub", "NullHub", "NULL_HUB", "DEFAULT_MAX_EVENTS",
+    "DEFAULT_MAX_SPANS", "DEFAULT_MAX_WINDOWS", "DEFAULT_TIMELINE_MAXLEN",
+    "HIST_BINS", "hist_bin_index", "hist_bin_upper",
 ]
 
 DEFAULT_MAX_EVENTS = 200_000
+DEFAULT_MAX_SPANS = 200_000
 DEFAULT_MAX_WINDOWS = 4096
 DEFAULT_TIMELINE_MAXLEN = 4096
 
@@ -275,6 +284,43 @@ class Timeline:
         return f"Timeline({self.name!r}, points={len(self._ring)})"
 
 
+class Span:
+    """One timed stretch of a live program, on `time.perf_counter_ns`.
+
+    `parent` is the id of the span that was open when this one began (-1
+    for none), `req` the request it serves (-1 for none) and `n` one
+    count of its work (0 for none). `dev`, where set, is a pair of
+    device events (`torch.cuda.Event` or anything with `elapsed_time`)
+    recorded around the span's device work; `device_ms()` reads it,
+    which waits for the second event, so call it only once the work is
+    done."""
+
+    __slots__ = ("name", "start", "end", "id", "parent", "req", "n", "dev")
+
+    def __init__(self, name: str, start: int, span_id: int, parent: int,
+                 req: int = -1, n: int = 0):
+        self.name = name
+        self.start = start
+        self.end = start
+        self.id = span_id
+        self.parent = parent
+        self.req = req
+        self.n = n
+        self.dev = None
+
+    @property
+    def ns(self) -> int:
+        return self.end - self.start
+
+    def device_ms(self) -> float | None:
+        return None if self.dev is None else \
+            self.dev[0].elapsed_time(self.dev[1])
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, "
+                f"req={self.req}, n={self.n}, ns={self.ns})")
+
+
 class TelemetryHub:
     """The one sink all layers publish probes and events into.
 
@@ -308,6 +354,11 @@ class TelemetryHub:
         self.events: collections.deque[dict[str, Any]] = \
             collections.deque(maxlen=int(max_events))
         self.events_dropped = 0
+        self.spans: collections.deque[Span] = \
+            collections.deque(maxlen=DEFAULT_MAX_SPANS)
+        self.spans_dropped = 0
+        self._open: list[Span] = []     # spans begun and not yet ended
+        self._span_ids = itertools.count()
 
     # -- probe access (producers cache the returned objects) ----------- #
     def counter(self, name: str) -> Counter:
@@ -366,6 +417,44 @@ class TelemetryHub:
         if len(evq) == evq.maxlen:
             self.events_dropped += 1
         evq.append(ev)
+
+    # -- spans -------------------------------------------------------- #
+    def begin(self, name: str, req: int = -1, n: int = 0) -> Span:
+        """Open a span now, as a child of the innermost open one."""
+        stack = self._open
+        sp = Span(name, time.perf_counter_ns(), next(self._span_ids),
+                  stack[-1].id if stack else -1, req, n)
+        stack.append(sp)
+        return sp
+
+    def end(self, sp: Span) -> None:
+        """Close `sp` now (and any span left open inside it) and keep
+        it in the ring."""
+        sp.end = time.perf_counter_ns()
+        stack = self._open
+        while stack and stack.pop() is not sp:
+            pass
+        self._keep(sp)
+
+    def switch(self, sp: Span, name: str, req: int = -1,
+               n: int = 0) -> Span:
+        """End `sp` and begin its next sibling `name`."""
+        self.end(sp)
+        return self.begin(name, req, n)
+
+    def record(self, name: str, start: int, end: int, req: int = -1,
+               n: int = 0) -> Span:
+        """Keep a span timed by the caller, with no parent."""
+        sp = Span(name, start, next(self._span_ids), -1, req, n)
+        sp.end = end
+        self._keep(sp)
+        return sp
+
+    def _keep(self, sp: Span) -> None:
+        ring = self.spans
+        if len(ring) == ring.maxlen:
+            self.spans_dropped += 1
+        ring.append(sp)
 
     # -- read side ------------------------------------------------------ #
     def summary(self) -> dict[str, Any]:

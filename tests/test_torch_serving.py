@@ -14,6 +14,10 @@ reference's parameters
 - `host_cpu_report` equals the reference engine's exactly: both route
   the same Table-2 tasks at the same fake times through equal core
   managers.
+- `TestTrace` (Llama and Mamba2): the engine's own spans and counters
+  (`engine.trace`) leave the tokens as they were, nest as documented,
+  carry each request's id and counts, and equal what was served; with
+  `trace` off nothing is recorded and no clock read.
 At float32 the two models' logits differ by about 1e-6, so greedy
 tokens agree unless two logits tie that closely.
 
@@ -27,6 +31,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -451,3 +457,161 @@ def test_cache_dtype_and_device(model):
     assert eng.cache["k"].dtype == torch.float32
     assert eng.cache["pos"].dtype == torch.int32
     assert eng.tokens.device == model.device
+
+
+# ------------------------------ tracing ------------------------------ #
+TASKS = ("submit", "alloc_memory", "start_iteration", "finish_request",
+         "free_memory")
+# each span's parent, by name (cpu_task/submit is a root: `submit` runs
+# outside `step`)
+PARENTS = {"admit": ("step",), "upload": ("admit",), "prefill": ("admit",),
+           "splice": ("admit",), "select": ("admit", "step"),
+           "wait": ("admit", "step"), "decode": ("step",),
+           "retire": ("step",), "periodic": ("step",),
+           "cpu_task/alloc_memory": ("admit",),
+           "cpu_task/start_iteration": ("step",),
+           "cpu_task/finish_request": ("retire",),
+           "cpu_task/free_memory": ("retire",)}
+
+
+def _trace_serve(model, trace):
+    """The "refill" case with `engine.trace = trace`, a fake clock that
+    passes the idling period every third step, and what each step
+    returned."""
+    batch, max_len, policy, cores, prompts, news = CASES["refill"]
+    fake = [0.0]
+    eng = InferenceEngine(model, max_batch=batch, max_len=max_len,
+                          policy=policy, num_host_cores=cores,
+                          clock=lambda: fake[0])
+    eng.trace = trace
+    reqs = []
+    for p, n in zip(prompts, news):
+        eng.submit(p, n)
+        reqs.append(eng.pending[-1])
+    returned = []
+    while eng.pending or eng.active_mask.any():
+        returned.append(eng.step())
+        fake[0] += 0.4
+    return eng, reqs, returned
+
+
+@pytest.fixture(scope="module", params=["llama3-8b", "mamba2-2.7b"])
+def traced(request):
+    m = request.getfixturevalue(
+        "model" if request.param == "llama3-8b" else "ssm_model")
+    hub = TelemetryHub()
+    eng, reqs, returned = _trace_serve(m, hub)
+    return types.SimpleNamespace(model=m, hub=hub, eng=eng, reqs=reqs,
+                                 returned=returned,
+                                 spans={s.id: s for s in hub.spans})
+
+
+class TestTrace:
+    def test_tokens_equal_without_trace(self, traced):
+        eng, reqs, returned = _trace_serve(traced.model, None)
+        assert [r.output for r in reqs] == \
+            [r.output for r in traced.reqs]
+        assert returned == traced.returned
+        assert eng.host_cpu_report() == traced.eng.host_cpu_report()
+
+    def test_children_lie_within_their_parents(self, traced):
+        spans = traced.spans
+        for s in spans.values():
+            assert s.start <= s.end
+            if s.name in ("step", "queued", "cpu_task/submit"):
+                assert s.parent == -1, s
+                continue
+            parent = spans[s.parent]
+            assert parent.name in PARENTS[s.name], (s, parent)
+            assert parent.start <= s.start and s.end <= parent.end
+
+    def test_each_admission_has_its_queue_admit_and_prefill(self, traced):
+        by_req = {}
+        for s in traced.spans.values():
+            if s.req >= 0:
+                by_req.setdefault(s.req, []).append(s)
+        assert sorted(by_req) == [r.req_id for r in traced.reqs]
+        for r in traced.reqs:
+            named = {}
+            for s in by_req[r.req_id]:
+                named.setdefault(s.name, []).append(s)
+            (queued,), (admit,), (prefill,) = (
+                named["queued"], named["admit"], named["prefill"])
+            assert queued.n == prefill.n == len(r.prompt)
+            assert queued.end == admit.start and queued.start < admit.start
+            assert r.submitted_ns == queued.start
+            for name in ("upload", "splice", "cpu_task/submit",
+                         "cpu_task/alloc_memory", "cpu_task/finish_request",
+                         "cpu_task/free_memory"):
+                assert len(named[name]) == 1, name
+            assert prefill.dev is None      # no device events on the CPU
+
+    def test_decode_counts_the_active_slots(self, traced):
+        steps = sorted((s for s in traced.spans.values()
+                        if s.name == "step"), key=lambda s: s.start)
+        assert len(steps) == len(traced.returned)
+        for step, out in zip(steps, traced.returned):
+            decodes = [s for s in traced.spans.values()
+                       if s.name == "decode" and s.parent == step.id]
+            assert step.n == len(out)
+            assert [d.n for d in decodes] == ([len(out)] if out else [])
+
+    def test_counters_equal_what_was_served(self, traced):
+        c = {n: k.value for n, k in traced.hub.counters.items()}
+        prompts = CASES["refill"][4]
+        decoded = [len(out) for out in traced.returned if out]
+        assert c == {"steps": len(traced.returned),
+                     "admissions": len(prompts),
+                     "prefill_tokens": sum(map(len, prompts)),
+                     "decode_calls": len(decoded),
+                     "decode_tokens": sum(decoded)}
+        # every token is the prefill's first or a decoded one
+        assert sum(len(r.output) for r in traced.reqs) == \
+            len(prompts) + sum(decoded)
+
+    def test_host_tasks_are_named_by_their_table2_task(self, traced):
+        names = [s.name for s in traced.spans.values()]
+        tasks = [n for n in names if n.startswith("cpu_task/")]
+        assert {n.split("/", 1)[1] for n in tasks} == set(TASKS)
+        assert len(tasks) == traced.eng.core_manager.metrics.assigns
+        assert 0 < names.count("periodic") < len(traced.returned)
+
+    def test_off_records_nothing_and_reads_no_clock(self, traced,
+                                                    monkeypatch):
+        hub = TelemetryHub()
+        want = [r.output for r in traced.reqs]
+
+        def no_clock():
+            raise AssertionError("perf_counter_ns read with trace off")
+        monkeypatch.setattr(time, "perf_counter_ns", no_clock)
+        batch, max_len, policy, cores, prompts, news = CASES["refill"]
+        eng = InferenceEngine(traced.model, max_batch=batch,
+                              max_len=max_len, policy=policy,
+                              num_host_cores=cores, clock=lambda: 0.0,
+                              telemetry=hub)
+        reqs = []
+        for p, n in zip(prompts, news):
+            eng.submit(p, n)
+            reqs.append(eng.pending[-1])
+        eng.run_until_drained()
+        monkeypatch.undo()
+        assert [r.output for r in reqs] == want
+        assert eng.trace is None and not hub.spans
+        assert all(r.submitted_ns is None for r in reqs)
+
+    def test_prometheus_text_adds_the_trace_counters(self, traced):
+        """The trace's counters and its ring's drops follow the core
+        manager's text, which stays as without a trace."""
+        eng = traced.eng
+        on = eng.prometheus_text()
+        eng.trace = None
+        try:
+            off = eng.prometheus_text()
+        finally:
+            eng.trace = traced.hub
+        assert on.startswith(off)
+        added = on[len(off):].splitlines()
+        for name, c in traced.hub.counters.items():
+            assert f"repro_{name}_total {c.value}" in added
+        assert "repro_spans_dropped 0" in added
+        assert len(added) == 2 * len(traced.hub.counters) + 2

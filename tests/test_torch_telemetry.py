@@ -18,9 +18,14 @@ the reference, on the CPU.
 - The fleet engine's hub equals the reference's on numpy and is within
   `AGREE_RTOL` of the reference's jax hub on torch (CPU); as in the
   reference, the fleet path returns no summary (ROADMAP R7).
+- The port's span ring (no counterpart in the reference): nesting, drop
+  counts, device times; the spans leave a hub's summary as the
+  reference's, and the serving engine's spans (`trace`) leave its core
+  manager's hub equal to the reference engine's.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -41,6 +46,7 @@ from repro_torch.core import CoreManager
 from repro_torch.models import Model, params_from_jax
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.sim import ExperimentConfig, run_experiment
+from repro_torch.telemetry.hub import DEFAULT_MAX_SPANS
 
 # tests/test_telemetry.py's config: a permanently dirty grid and full
 # deferral, so carbon-aware cause records appear on a short run
@@ -292,6 +298,49 @@ class TestProbes:
         assert seen[0] == seen[1]
         assert seen[0][1]["events_dropped"] == 15
 
+    def test_span_ring(self):
+        """Spans nest by what was open when they began, a full ring
+        counts what it drops, and the spans leave the summary as the
+        reference's."""
+        hub = tel.TelemetryHub()
+        assert hub.spans.maxlen == DEFAULT_MAX_SPANS
+        hub.spans = collections.deque(maxlen=4)
+        ref = ref_tel.TelemetryHub()
+        assert hub.summary() == ref.summary()
+        outer = hub.begin("outer", req=3)
+        first = hub.begin("a", n=2)
+        second = hub.switch(first, "b")
+        hub.end(outer)                       # closes `b` too
+        queued = hub.record("queued", 5, 9, req=3, n=7)
+        hub.end(hub.begin("root"))
+        assert [s.name for s in hub.spans] == ["a", "outer", "queued",
+                                               "root"]
+        assert (first.parent, second.parent) == (outer.id, outer.id)
+        assert outer.parent == queued.parent == hub.spans[-1].parent == -1
+        assert (outer.req, first.n, queued.end - queued.start) == (3, 2, 4)
+        assert outer.start <= first.start <= first.end <= second.start \
+            <= outer.end
+        assert hub.spans_dropped == 0 and not hub._open
+        hub.record("x", 0, 1)
+        hub.record("y", 0, 1)
+        assert len(hub.spans) == 4 and hub.spans_dropped == 2
+        assert [s.name for s in hub.spans] == ["queued", "root", "x", "y"]
+        assert hub.summary() == ref.summary()
+
+    def test_span_device_ms(self):
+        class Ev:
+            def __init__(self, t):
+                self.t = t
+
+            def elapsed_time(self, other):
+                return other.t - self.t
+        hub = tel.TelemetryHub()
+        sp = hub.begin("prefill")
+        assert sp.device_ms() is None
+        sp.dev = (Ev(1.5), Ev(4.0))
+        hub.end(sp)
+        assert sp.device_ms() == 2.5
+
     def test_null_hub_and_from_opts(self):
         for mod in (tel, ref_tel):
             assert mod.NULL_HUB.enabled is False
@@ -512,9 +561,7 @@ class TestFleetHub:
 # ---------------------------------------------------------------------- #
 # the serving engine
 # ---------------------------------------------------------------------- #
-def test_engine_with_a_hub(reference):
-    """Tokens as without a hub; `prometheus_text()` equal to the
-    reference engine's on the same requests under the same fake clock."""
+def _engine_case_model():
     cfg = dataclasses.replace(ref_smoke_config("llama3-8b"), dtype="float32")
     params = RefModel(cfg).init(jax.random.key(0))
     port_cfg = dataclasses.replace(get_smoke_config("llama3-8b"),
@@ -522,31 +569,60 @@ def test_engine_with_a_hub(reference):
     model = Model(port_cfg, device="cpu")
     model.load_state_dict(params_from_jax(
         port_cfg, jax.tree.map(np.asarray, params)))
+    return model
+
+
+def _serve_engine_case(model, hub, trace=None):
     c = ENGINE_CASE
+    fake = [0.0]
+    eng = InferenceEngine(model, max_batch=c["batch"],
+                          max_len=c["max_len"], policy=c["policy"],
+                          num_host_cores=c["cores"],
+                          clock=lambda: fake[0], telemetry=hub)
+    eng.trace = trace
+    reqs = []
+    for p, n in zip(c["prompts"], c["news"]):
+        eng.submit(p, n)
+        reqs.append(eng.pending[-1])
+    for _ in range(100):
+        if not eng.pending and not eng.active_mask.any():
+            break
+        eng.step()
+        fake[0] += 0.1
+    return eng, [r.output for r in reqs]
 
-    def serve(hub):
-        fake = [0.0]
-        eng = InferenceEngine(model, max_batch=c["batch"],
-                              max_len=c["max_len"], policy=c["policy"],
-                              num_host_cores=c["cores"],
-                              clock=lambda: fake[0], telemetry=hub)
-        reqs = []
-        for p, n in zip(c["prompts"], c["news"]):
-            eng.submit(p, n)
-            reqs.append(eng.pending[-1])
-        for _ in range(100):
-            if not eng.pending and not eng.active_mask.any():
-                break
-            eng.step()
-            fake[0] += 0.1
-        return eng, [r.output for r in reqs]
 
+def test_engine_with_a_hub(reference):
+    """Tokens as without a hub; `prometheus_text()` equal to the
+    reference engine's on the same requests under the same fake clock."""
+    model = _engine_case_model()
     hub = tel.TelemetryHub()
-    eng, tokens = serve(hub)
-    _, plain = serve(None)
+    eng, tokens = _serve_engine_case(model, hub)
+    _, plain = _serve_engine_case(model, None)
     assert tokens == plain
     assert hub.counter("assigns").value == eng.core_manager.metrics.assigns
     assert hub.summary() == reference["engine"]["summary"]
     text = eng.prometheus_text()
     assert text == reference["engine"]["prometheus"]
     assert "repro_host_assigns" in text
+
+
+def test_engine_with_a_hub_and_a_trace(reference):
+    """The engine's spans go to its own hub (`trace`): the core
+    manager's hub still sums up as the reference engine's, and
+    `prometheus_text()` is the reference's with the trace's serving
+    totals after it."""
+    model = _engine_case_model()
+    hub, trace = tel.TelemetryHub(), tel.TelemetryHub()
+    eng, tokens = _serve_engine_case(model, hub, trace)
+    assert tokens == _serve_engine_case(model, None)[1]
+    assert hub.summary() == reference["engine"]["summary"]
+    assert not hub.spans and trace.spans
+    text = eng.prometheus_text()
+    ref = reference["engine"]["prometheus"]
+    assert text.startswith(ref)
+    c = ENGINE_CASE
+    assert f"repro_admissions_total {len(c['prompts'])}" in \
+        text[len(ref):].splitlines()
+    assert trace.summary()["counters"]["prefill_tokens"] == \
+        sum(map(len, c["prompts"]))
