@@ -28,7 +28,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    without a window) and MiniCPM3 gives them in phase 7 (MLA: q/k head
    dim 96, v head dim 64, 40 heads over 40; prefill q (1, 1,024, 40,
    96) causal, decode q (4, 40, 96) against caches (4, 1,536, 40, 96) and
-   (4, 1,536, 40, 64)), Zamba2-7B gives them in phase 8 (the shared
+   (4, 1,536, 40, 64); in bfloat16 K comes as phase 7's decode gives it:
+   each head's (4, 1,536, 40, 64) nope part and the rope part all heads
+   share, the [..., 256:288] view of a (4, 1,536, 288) latent), Zamba2-7B gives them in phase 8 (the shared
    block: head dim 112, 32 heads over 32; prefill q (1, 1,024, 32, 112)
    causal, decode q (4, 32, 112) against (4, 1,536, 32, 112) caches) and
    Seamless's encoder gives the prefill kernel in phase 10 ((1, 1,024,
@@ -131,8 +133,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    the top-k routes of the two paths are compared (see F32_RTOL).
 7. MiniCPM3-4B at full width (62 layers, MLA, bfloat16, seed 0) served
    the same way: B2 and B3 at MLA's (96, 64) instance, the latent cache
-   expanded to K and V each decode step (`mla_absorb=False`, the
-   default). Then a short run on the same model and requests with
+   expanded to K's nope part and V each decode step, B3 reading K's rope
+   part from the latent in place (`mla_absorb=False`, the default). Then a short run on the same model and requests with
    `mla_absorb=True`, which attends against the latent in plain PyTorch:
    no B3 launch in its decode; its tokens are printed beside the default
    run's. The same two holds of the default path follow.
@@ -359,7 +361,8 @@ FLASH_ENCODER = (1, 16, 16, 1024, 64, 64, 0, "bfloat16", False)
 # TestDecodeAttentionKernel shapes and its window in both dtypes, a window
 # at the serve shape, Llama-3-8B's decode (4 slots against the
 # 1,536-position cache, pos drawn in [1, 1536]), MiniCPM3's (40 heads
-# over 40, 96 / 64) and Zamba2's shared block (32 heads over 32, 112) in
+# over 40, 96 / 64; in bfloat16 K's rope part apart, as its decode gives
+# it) and Zamba2's shared block (32 heads over 32, 112) in
 # both dtypes; and the serving example's decode (4 slots against its
 # 96-position cache, 8 heads over 2, head dim 32)
 DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
@@ -379,6 +382,8 @@ DECODE_CASES = ([(b, h, hkv, s, d, d, 0, dt)
                 + [(4, 8, 2, 96, 32, 32, 0, "bfloat16")])
 DECODE_MAIN = (4, 32, 8, 1536, 128, 128, 0, "bfloat16")
 DECODE_MLA = (4, 40, 40, 1536, 96, 64, 0, "bfloat16")
+# MiniCPM3's latent row: kv_lora_rank columns, then K's rope part
+MLA_LATENT, MLA_ROPE = 256, 32
 DECODE_ZAMBA = (4, 32, 32, 1536, 112, 112, 0, "bfloat16")
 
 
@@ -791,16 +796,24 @@ def _decode_case(torch, np, case):
     decode_attention case, pos drawn in [1, S]: three calls on the same
     inputs, each giving (B, H, Dv), and the work one call must do: the
     visible K and V rows, q, pos and the output, each once; 2 * (D + Dv)
-    operations per (head, visible position)."""
+    operations per (head, visible position). DECODE_MLA is given as
+    MiniCPM3's decode gives it: each head's K nope part (B, S, Hkv, 64)
+    and the rope part all heads share, the [..., 256:288] view of a (B,
+    S, 288) latent, its visible rows read once; SDPA gets K whole."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import decode_bhd
+    from repro_torch.models.attention import whole_key
     b, h, hkv, s, d, dv, window, dtype = case
+    rope = MLA_ROPE if case == DECODE_MLA else 0
     rng = np.random.default_rng(s)
-    q, kc, vc = (torch.tensor(rng.standard_normal(shape),
-                              dtype=torch.float32,
-                              device="cuda").to(getattr(torch, dtype))
-                 for shape in ((b, h, d), (b, s, hkv, d), (b, s, hkv, dv)))
+    shapes = [(b, h, d), (b, s, hkv, d - rope), (b, s, hkv, dv)]
+    q, kc, vc, *latent = (
+        torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                     device="cuda").to(getattr(torch, dtype))
+        for shape in shapes + ([(b, s, MLA_LATENT + rope)] if rope else []))
+    k_rope = latent[0][..., MLA_LATENT:] if rope else None
+    kw = dict(window=window, k_rope=k_rope)
     lens = rng.integers(1, s + 1, b)
     pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
     idx = torch.arange(s, device="cuda")[None, :]
@@ -808,7 +821,8 @@ def _decode_case(torch, np, case):
     if window:
         valid &= idx >= pos[:, None] - window
     mask = valid[:, None, None, :]
-    qb, kb, vb = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    k_whole = whole_key(kc, k_rope) if rope else kc
+    qb, kb, vb = q[:, :, None], k_whole.transpose(1, 2), vc.transpose(1, 2)
 
     def library():
         return F.scaled_dot_product_attention(
@@ -817,11 +831,11 @@ def _decode_case(torch, np, case):
     size = 2 if dtype == "bfloat16" else 4
     seen = int(sum(min(int(n), window) if window else int(n)
                    for n in lens))
-    return (lambda: decode_bhd(q, kc, vc, pos, window=window),
-            lambda: decode_bhd(q, kc, vc, pos, window=window,
-                               use_kernel=False),
+    return (lambda: decode_bhd(q, kc, vc, pos, **kw),
+            lambda: decode_bhd(q, kc, vc, pos, use_kernel=False, **kw),
             library, sdpa_backend(torch, qb, kb, vb, mask, False),
-            (seen * hkv * (d + dv) + b * h * (d + dv)) * size + 4 * b,
+            (seen * (hkv * (d - rope + dv) + rope) + b * h * (d + dv))
+            * size + 4 * b,
             2 * (d + dv) * h * seen)
 
 
@@ -843,6 +857,8 @@ def phase_attention_kernels(torch, np):
             b, h, hkv, s, d, dv, window, dtype = case[:8]
             causal = "" if len(case) == 8 else \
                 (" causal" if case[8] else " bidirectional")
+            if case == DECODE_MLA:
+                causal = " K's rope part apart"
             kernel, plain, library, backend, nbytes, ops = make(torch, np,
                                                                 case)
             out, ref, lib = kernel(), plain(), library()
@@ -1507,9 +1523,12 @@ def serve_cell(torch, np, serve, kernels, expected):
     or `SERVE_VLM`) on the card through the port's engine. `kernels`: the
     `CudaKernel` of every kernel of the port; `expected(cfg,
     decode_iterations)`: the launches of each of them that the path must
-    make. Returns (the model, the prompts, the engine's tokens of each,
-    the launches, the cell's tag)."""
+    make. Also holds the decode calls given K's rope part apart
+    (`rope_apart_calls`) at one per MLA layer and decode step. Returns
+    (the model, the prompts, the engine's tokens of each, the launches,
+    the cell's tag)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.models import Model
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.telemetry import TelemetryHub
@@ -1570,6 +1589,7 @@ def serve_cell(torch, np, serve, kernels, expected):
 
     eng._prefill_fn, eng._decode_fn = timed_prefill, counted_decode
     zero_launches(kernels)
+    apart_before = dec_ops.rope_apart_calls
     t0 = time.perf_counter()
     reqs = []
     for prompt in prompts:
@@ -1579,6 +1599,7 @@ def serve_cell(torch, np, serve, kernels, expected):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
+    apart = dec_ops.rope_apart_calls - apart_before
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     new = serve["requests"] * serve["new_tokens"]
     decode_tokens = new - serve["requests"]   # the first comes of prefill
@@ -1614,6 +1635,16 @@ def serve_cell(torch, np, serve, kernels, expected):
     want = expected(cfg, decode_iters[0])
     log(f"{tag} launches {launches} (expected {want}); peak device memory "
         f"{peak_gb:.2f} GB")
+    # each MLA layer of a decode step gives B3 K's rope part apart
+    want_apart = cfg.num_layers if cfg.attn_type == "mla" \
+        and not cfg.mla_absorb else 0
+    log(f"{tag} decode_attention calls given K's rope part apart: {apart}, "
+        f"{apart / decode_iters[0]:g} per decode step (expected "
+        f"{want_apart})")
+    if apart != want_apart * decode_iters[0]:
+        raise AssertionError(f"{tag}: {apart} rope-apart calls in "
+                             f"{decode_iters[0]} decode steps, expected "
+                             f"{want_apart} a step")
     if launches != want:
         raise AssertionError(f"the serve path did not run through its "
                              f"kernels as expected: {launches} != {want}")

@@ -25,6 +25,17 @@
 // and Zamba2's 32 over 32 (a group of 1) run in the kG = 4 instance, three
 // of its four head lanes idle.
 //
+// K from two sources (MLA): columns [0, k_split) of a K row come from the
+// per-head k cache, columns [k_split, D) from `k_rope` (B, S, D - k_split),
+// one row for all heads (head stride 0): MiniCPM3's rope part, read in
+// place from the latent cache (columns 256 to 287 of its 288), so the model
+// never writes K's rope part out for each of the 40 heads. Only the
+// addresses of the copies change: the ring holds the same tile, and the
+// output is bit for bit that of a launch on the concatenated K. The second
+// source is a template flag, kApart, built only into the (96, 64)
+// instance; every other instance, and (96, 64) with K whole (k_split = D),
+// computes the addresses of its copies as before.
+//
 // Design: the Pallas kernel walks the cache of one sequence in one grid
 // row; at batch 4 that would be 4 CTAs on 132 SMs. Here the grid is
 // (n_split, Hkv, B): the visible range [lo, hi) of a sequence is cut into
@@ -82,10 +93,10 @@ constexpr int kMaxGroups = 16;     // query heads per cache head
 constexpr int kMaxSplits = 64;     // slices per (sequence, cache head)
 
 // Element strides: q and o (B, H, D) by batch and head; the caches
-// (B, S, Hkv, D) by batch, position and head. The head_dim axis has
-// stride 1.
+// (B, S, Hkv, D) by batch, position and head; k_rope (B, S, D - k_split)
+// by batch and position. The head_dim axis has stride 1.
 struct Strides {
-  int64_t q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;
+  int64_t q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h, kr_b, kr_s;
 };
 
 // Shared memory: the ring of K and V tiles; after the walk, the same bytes
@@ -141,12 +152,14 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
 
 // All threads: the cp.async copies of key tile t of the slice [s_lo, s_hi)
 // into its ring stage (kBK rows of K, DQK wide, then kBK rows of V, DV
-// wide), rows past s_hi zero-filled.
-template <typename T, int DQK, int DV>
+// wide), rows past s_hi zero-filled. With kApart a K row's columns from
+// k_split on come from krb (row stride kr_s).
+template <typename T, int DQK, int DV, bool kApart>
 __device__ __forceinline__ void load_tile(T* ring, const T* kb,
-                                           const T* vb, int64_t k_s,
-                                           int64_t v_s, int t, int s_lo,
-                                           int s_hi) {
+                                           const T* krb, const T* vb,
+                                           int64_t k_s, int64_t kr_s,
+                                           int64_t v_s, int k_split, int t,
+                                           int s_lo, int s_hi) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunksK = DQK / kVec;  // 16-byte chunks per row
   constexpr int kChunksV = DV / kVec;
@@ -161,9 +174,12 @@ __device__ __forceinline__ void load_tile(T* ring, const T* kb,
     const int rem = is_v ? idx - kBK * kChunksK : idx;
     const int r = rem / chunks;
     const int c = (rem % chunks) * kVec;
-    const T* base = is_v ? vb : kb;
-    const T* src = r < valid ? base + (k0 + r) * (is_v ? v_s : k_s) + c
-                             : base;
+    const bool is_rope = kApart && !is_v && c >= k_split;
+    const T* base = is_v ? vb : is_rope ? krb : kb;
+    const int64_t row_s = is_v ? v_s : is_rope ? kr_s : k_s;
+    const T* src = r < valid
+                       ? base + (k0 + r) * row_s + (is_rope ? c - k_split : c)
+                       : base;
     hopper::cp_async16((is_v ? vd + r * DV : kd + r * DQK) + c, src,
                        r < valid ? 16 : 0);
   }
@@ -191,9 +207,10 @@ __device__ __forceinline__ float transpose_sum(float (&v)[32], int lane) {
 
 // DQK: the head dim of q and k; DV: that of v and o. kG: query heads per
 // cache head that the registers hold (>= H / Hkv).
-template <typename T, int DQK, int DV, int kG>
+template <typename T, int DQK, int DV, int kG, bool kApart>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ k_rope,
                             const T* __restrict__ v,
                             const int* __restrict__ pos,
                             float* __restrict__ part_acc,
@@ -202,7 +219,7 @@ __global__ void __launch_bounds__(kThreads)
                             int* __restrict__ counters, T* __restrict__ o,
                             Strides st, int n_heads, int n_kv_heads,
                             int max_len, int window, int n_split,
-                            float scale_log2) {
+                            int k_split, float scale_log2) {
   // elements of a q or k row, and of a v or o row, per lane; lanes past
   // the row (at 112: lanes 28 to 31) hold none
   constexpr int E = (DQK + 31) / 32;
@@ -238,11 +255,13 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (s_hi - s_lo + kBK - 1) / kBK;
 
   const T* kb = k + b * st.k_b + hk * st.k_h;
+  const T* krb = k_rope + b * st.kr_b;
   const T* vb = v + b * st.v_b + hk * st.v_h;
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles)
-      load_tile<T, DQK, DV>(ring, kb, vb, st.k_s, st.v_s, t, s_lo, s_hi);
+      load_tile<T, DQK, DV, kApart>(ring, kb, krb, vb, st.k_s, st.kr_s,
+                                    st.v_s, k_split, t, s_lo, s_hi);
     hopper::cp_async_commit();
   }
 
@@ -274,8 +293,9 @@ __global__ void __launch_bounds__(kThreads)
     hopper::cp_async_wait<kStages - 2>();
     __syncthreads();  // tile t has landed; tile t - 1's readers are done
     if (t + kStages - 1 < n_tiles)
-      load_tile<T, DQK, DV>(ring, kb, vb, st.k_s, st.v_s, t + kStages - 1,
-                            s_lo, s_hi);
+      load_tile<T, DQK, DV, kApart>(ring, kb, krb, vb, st.k_s, st.kr_s,
+                                    st.v_s, k_split, t + kStages - 1, s_lo,
+                                    s_hi);
     hopper::cp_async_commit();
 
     const T* kd = ring + (t % kStages) * kBK * (DQK + DV);
@@ -431,62 +451,69 @@ __global__ void __launch_bounds__(kThreads)
 
 // The launch arguments after the tensors, passed down unchanged.
 struct Shape {
-  int batch, n_heads, n_kv_heads, max_len, window, n_split;
+  int batch, n_heads, n_kv_heads, max_len, window, n_split, k_split;
   float scale;
 };
 
 struct Buffers {
-  const void *q, *k, *v;
+  const void *q, *k, *k_rope, *v;
   const int* pos;
   float *part_acc, *part_m, *part_l;
   int* counters;
   void* o;
 };
 
-template <typename T, int DQK, int DV, int kG>
+template <typename T, int DQK, int DV, int kG, bool kApart>
 cudaError_t launch_typed(const Buffers& x, const Strides& st,
                          const Shape& sh, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, DQK, DV, kG>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_attention_kernel<T, DQK, DV, kG>,
+      decode_attention_kernel<T, DQK, DV, kG, kApart>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(sh.n_split, sh.n_kv_heads, sh.batch);
-  decode_attention_kernel<T, DQK, DV, kG><<<grid, kThreads, smem, stream>>>(
+  decode_attention_kernel<T, DQK, DV, kG, kApart>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x.q), static_cast<const T*>(x.k),
-      static_cast<const T*>(x.v), x.pos, x.part_acc, x.part_m, x.part_l,
-      x.counters, static_cast<T*>(x.o), st, sh.n_heads, sh.n_kv_heads,
-      sh.max_len, sh.window, sh.n_split, sh.scale * 1.4426950408889634f);
+      static_cast<const T*>(x.k_rope), static_cast<const T*>(x.v), x.pos,
+      x.part_acc, x.part_m, x.part_l, x.counters, static_cast<T*>(x.o), st,
+      sh.n_heads, sh.n_kv_heads, sh.max_len, sh.window, sh.n_split,
+      sh.k_split, sh.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 // kG: the query heads per cache head rounded up to 4, 8 or 16. A group of
 // 1 (MLA's 40 heads over 40, Zamba2's 32 over 32) takes kG = 4, with 3 of
 // every 4 (key, head) lanes of a step idle.
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, bool kApart = false>
 cudaError_t launch_groups(const Buffers& x, const Strides& st,
                           const Shape& sh, cudaStream_t stream) {
   const int groups = sh.n_heads / sh.n_kv_heads;
-  if (groups <= 4) return launch_typed<T, DQK, DV, 4>(x, st, sh, stream);
-  if (groups <= 8) return launch_typed<T, DQK, DV, 8>(x, st, sh, stream);
-  return launch_typed<T, DQK, DV, kMaxGroups>(x, st, sh, stream);
+  if (groups <= 4)
+    return launch_typed<T, DQK, DV, 4, kApart>(x, st, sh, stream);
+  if (groups <= 8)
+    return launch_typed<T, DQK, DV, 8, kApart>(x, st, sh, stream);
+  return launch_typed<T, DQK, DV, kMaxGroups, kApart>(x, st, sh, stream);
 }
 
 // The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128, 128),
 // MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and Zamba2's
-// (112, 112).
+// (112, 112). Only (96, 64) takes K in two parts (k_split < D).
 template <typename T>
 cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
                        const Strides& st, const Shape& sh,
                        cudaStream_t stream) {
+  const bool apart = sh.k_split < head_dim;
+  if (head_dim == 96 && v_head_dim == 64)
+    return apart ? launch_groups<T, 96, 64, true>(x, st, sh, stream)
+                 : launch_groups<T, 96, 64>(x, st, sh, stream);
+  if (apart) return cudaErrorInvalidValue;
   if (head_dim == 32 && v_head_dim == 32)
     return launch_groups<T, 32, 32>(x, st, sh, stream);
   if (head_dim == 64 && v_head_dim == 64)
     return launch_groups<T, 64, 64>(x, st, sh, stream);
   if (head_dim == 128 && v_head_dim == 128)
     return launch_groups<T, 128, 128>(x, st, sh, stream);
-  if (head_dim == 96 && v_head_dim == 64)
-    return launch_groups<T, 96, 64>(x, st, sh, stream);
   if (head_dim == 112 && v_head_dim == 112)
     return launch_groups<T, 112, 112>(x, st, sh, stream);
   return cudaErrorInvalidValue;
@@ -497,17 +524,22 @@ cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
 // q (B, H, D), k_cache (B, S, Hkv, D), v_cache (B, S, Hkv, Dv) and o (B,
 // H, Dv) of one dtype (0: float32, 1: bfloat16), with (D, Dv) =
 // (head_dim, v_head_dim) one of the instances of launch_dim, read and
-// written through the 10 element strides in
+// written through the 12 element strides in
 // `strides` (q: batch, head; k and v: batch, position, head; o: batch,
-// head); pos (B,) int32 on the device; n_split slices per (sequence,
-// cache head). The workspace holds
+// head; k_rope: batch, position); pos (B,) int32 on the device; n_split
+// slices per (sequence, cache head). With k_rope null, k_cache's rows are
+// D wide and k_split is D; else, at the (96, 64) instance only, k_cache
+// holds K's columns [0, k_split), a multiple of 16 bytes, and k_rope (B,
+// S, D - k_split), one row for every cache head, the rest. The workspace
+// holds
 // B * Hkv * n_split * (H / Hkv) * (Dv + 2) floats: part_acc, part_m and
 // part_l; `counters` holds B * Hkv int32 tickets, zero before the launch
 // and zero again after it. Launches one kernel on `stream` and returns a
 // CUDA error code: 0 when the launch was accepted. The caller checks
 // shapes, types, devices, alignment, H / Hkv <= 16 and n_split <= 64.
 extern "C" int decode_attention_launch(const void* q, const void* k,
-                                       const void* v, const int* pos,
+                                       const void* k_rope, const void* v,
+                                       const int* pos,
                                        float* part_acc, float* part_m,
                                        float* part_l, int* counters, void* o,
                                        const int64_t* strides, int batch,
@@ -515,18 +547,21 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int max_len, int head_dim,
                                        int v_head_dim, int dtype,
                                        int window, int n_split,
-                                       float scale, void* stream) {
+                                       int k_split, float scale,
+                                       void* stream) {
   if (batch <= 0 || n_heads <= 0) return static_cast<int>(cudaSuccess);
   if (n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
       n_heads / n_kv_heads > kMaxGroups || n_split <= 0 ||
-      n_split > kMaxSplits)
+      n_split > kMaxSplits || k_split <= 0 || k_split > head_dim ||
+      (k_split < head_dim && k_rope == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides st{strides[0], strides[1], strides[2], strides[3],
-                   strides[4], strides[5], strides[6], strides[7],
-                   strides[8], strides[9]};
-  const Buffers x{q, k, v, pos, part_acc, part_m, part_l, counters, o};
-  const Shape sh{batch, n_heads, n_kv_heads, max_len, window, n_split,
-                 scale};
+  const Strides st{strides[0], strides[1], strides[2],  strides[3],
+                   strides[4], strides[5], strides[6],  strides[7],
+                   strides[8], strides[9], strides[10], strides[11]};
+  const Buffers x{q,      k,      k_rope,   v, pos, part_acc,
+                  part_m, part_l, counters, o};
+  const Shape sh{batch,   n_heads, n_kv_heads, max_len,
+                 window,  n_split, k_split,    scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)

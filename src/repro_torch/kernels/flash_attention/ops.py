@@ -117,15 +117,18 @@ def check_instance(fn: str, dtype: torch.dtype, d: int, dv: int) -> None:
                      f"({d}, {dv})")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """`t` itself if the kernel's 16-byte row loads and TMA copies may
-    read it in place (unit stride on head_dim, rows and base 16-byte
-    aligned), else a contiguous copy."""
+def in_place(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte row loads and TMA copies may read `t`
+    in place: unit stride on head_dim, rows and base 16-byte aligned."""
     vec = 16 // t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in t.stride()[:-1])):
-        return t
-    return t.contiguous()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1]))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself if the kernels may read it in place (`in_place`), else a
+    contiguous copy."""
+    return t if in_place(t) else t.contiguous()
 
 
 def launch(q, k, v, out, *, causal, window, scale, q_offset, stream) -> int:

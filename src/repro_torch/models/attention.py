@@ -211,10 +211,20 @@ def chunked_self_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def whole_key(k_nope: torch.Tensor, k_rope: torch.Tensor) -> torch.Tensor:
+    """MLA's K (B, S, H, Dn + Dr) written out whole from its two parts:
+    each head's `k_nope` (B, S, H, Dn) beside `k_rope` (B, S, Dr), the
+    rope part that all heads share."""
+    b, s, h, _ = k_nope.shape
+    return torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, k_rope.shape[-1])], dim=-1)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos, window: int = 0,
                      scale: float | None = None,
-                     use_kernel: bool = True) -> torch.Tensor:
+                     use_kernel: bool = True,
+                     k_rope: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token attention against a KV cache.
 
     q: (B, 1, H, D); k_cache/v_cache: (B, S_max, Hkv, D); pos: () or (B,)
@@ -223,10 +233,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     A vector pos supports continuous batching (per-slot lengths). Runs
     in the decode kernel on CUDA tensors, else in its plain version; on
     DTensors per device (`_on_local_heads`).
+
+    `k_rope` (B, S_max, Dr): K's last Dr columns, shared by every head
+    (MLA's rope part, a view of the latent cache); k_cache then holds the
+    first D - Dr. The kernel reads it in place; on DTensors K is made
+    whole first (`whole_key`).
     """
+    if k_rope is not None and isinstance(q, DTensor):
+        k_cache, k_rope = whole_key(k_cache, k_rope), None
+
     def run(q, k_cache, v_cache, pos):
         return decode_bhd(q[:, 0], k_cache, v_cache, pos, window=window,
-                          scale=scale, use_kernel=use_kernel)[:, None]
+                          scale=scale, use_kernel=use_kernel,
+                          k_rope=k_rope)[:, None]
     return _on_local_heads(run, q, k_cache, v_cache, pos)
 
 

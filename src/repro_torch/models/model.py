@@ -527,24 +527,24 @@ class Model(nn.Module):
         return torch.cat([c_kv, k_rope], dim=-1)
 
     def _mla_kv_from_latent(self, latent, ap):
-        """Expand cached latent to per-head K (nope+rope) and V. On a mesh
-        a length-sharded latent stays so: each device expands its own rows
-        with the up-projections gathered whole (`rows_times`), K and V
+        """Expand cached latent to per-head K's nope part and V, (B, S, H,
+        qk_nope) and (B, S, H, v), beside K's rope part (B, S, qk_rope):
+        the latent's own columns, shared by every head and not copied
+        (`attn.whole_key` writes K out whole). On a mesh a length-sharded
+        latent stays so: each device expands its own rows with the
+        up-projections gathered whole (`rows_times`), K and V
         length-sharded as the latent. That is the reshard GSPMD makes at
         the dry run's shapes: it all-gathers the smaller operand, here the
         weights (2 x 1.3 MB against the latent's 134 MB a device at
         decode_32k)."""
         cfg = self.cfg
-        b, s, _ = latent.shape
         c_kv, k_rope = torch.split(latent,
                                    [cfg.kv_lora_rank, cfg.qk_rope_dim],
                                    dim=-1)
         k_nope, v = shd.rows_times(c_kv, ap["k_up"], ap["v_up"])
         k_nope = shd.split_last(k_nope, cfg.num_heads, cfg.qk_nope_dim)
         v = shd.split_last(v, cfg.num_heads, cfg.v_head_dim)
-        k_rope = k_rope[:, :, None, :].expand(b, s, cfg.num_heads,
-                                              cfg.qk_rope_dim)
-        return torch.cat([k_nope, k_rope], dim=-1), v
+        return k_nope, v, k_rope
 
     def _mla_scale(self) -> float:
         return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
@@ -559,7 +559,8 @@ class Model(nn.Module):
         if cfg.attn_type == "mla":
             q = self._mla_q(hn, blk.attn, positions)
             kept = self._mla_latent(hn, blk.attn, positions)
-            k, v = self._mla_kv_from_latent(kept, blk.attn)
+            k_nope, v, k_rope = self._mla_kv_from_latent(kept, blk.attn)
+            k = attn.whole_key(k_nope, k_rope)
             scale = self._mla_scale()
         else:
             q, k, v = self._gqa_qkv(hn, blk.attn, positions)
@@ -950,9 +951,10 @@ class Model(nn.Module):
     def _mla_decode_block(self, h, blk, latent_cache, pos, positions,
                           use_kernel):
         """MLA decode: write this token's latent into the cache in place
-        at `pos`, expand K/V from the whole latent cache (the reference's
-        naive materialization) and attend with pos + 1 valid rows, or,
-        with `mla_absorb`, attend against the latent itself."""
+        at `pos`, expand K's nope part and V from the whole latent cache
+        (the reference's naive materialization) and attend with pos + 1
+        valid rows, K's rope part read from the latent in place; or, with
+        `mla_absorb`, attend against the latent itself."""
         cfg = self.cfg
         h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln1, cfg.norm_eps)
@@ -965,9 +967,10 @@ class Model(nn.Module):
             o = self._mla_absorbed_attention(q, latent_cache, blk.attn, pos,
                                              scale)
         else:
-            k, v = self._mla_kv_from_latent(latent_cache, blk.attn)
-            o = attn.decode_attention(q, k, v, pos + 1, scale=scale,
-                                      use_kernel=use_kernel)
+            k_nope, v, k_rope = self._mla_kv_from_latent(latent_cache,
+                                                         blk.attn)
+            o = attn.decode_attention(q, k_nope, v, pos + 1, scale=scale,
+                                      use_kernel=use_kernel, k_rope=k_rope)
         o = shd.merge_last(o)
         h = h + o @ blk.attn["wo"]
         return self._mlp(h, blk)

@@ -205,6 +205,45 @@ class TestWrappers:
         with pytest.raises(ValueError, match=r"pos must be \(\) or \(1,\)"):
             dec_ops.decode_bhd(kv[:, 0], kv, kv, torch.tensor([1, 2]))
 
+    def test_rope_part_read_in_place(self):
+        """MiniCPM3's rope part, columns 256 to 287 of a (4, 1,536, 288)
+        bf16 latent, is read where it lies: `_aligned` returns the view
+        itself and the wrapper's check passes. A view the kernel could not
+        read in place raises, rather than be copied each call, as do head
+        dims other than the (96, 64) instance's."""
+        k_nope = torch.zeros(4, 1536, 40, 64, dtype=torch.bfloat16)
+        latent = torch.zeros(4, 1536, 288, dtype=torch.bfloat16)
+        rope = latent[..., 256:288]
+        assert fa_ops._aligned(rope) is rope
+        assert fa_ops.in_place(rope)
+        dec_ops._check_rope_in_place(k_nope, rope, 64)
+        odd = torch.zeros(4, 1536, 289, dtype=torch.bfloat16)
+        for bad in (latent[..., 255:287], odd[..., 256:288],
+                    latent[..., 224:288:2]):
+            with pytest.raises(ValueError, match="cannot be read in place"):
+                dec_ops._check_rope_in_place(k_nope, bad, 64)
+        with pytest.raises(ValueError, match="no multiple of 16 bytes"):
+            dec_ops._check_rope_in_place(
+                k_nope[..., :60],
+                torch.zeros(4, 1536, 40, dtype=torch.bfloat16)[..., :36], 64)
+        # only the (96, 64) instance is built to take K in two parts
+        for part, dv in ((k_nope[..., :56], 64), (k_nope, 96)):
+            with pytest.raises(ValueError, match="two parts only"):
+                dec_ops._check_rope_in_place(part, rope, dv)
+
+    def test_checks_rope_part(self):
+        """k_rope must be (B, S, Dr) beside the caches, with q's D the
+        caches' plus Dr, on q's device and in q's dtype."""
+        q = torch.zeros(2, 4, 24)
+        kc, vc = torch.zeros(2, 16, 4, 16), torch.zeros(2, 16, 4, 16)
+        with pytest.raises(ValueError, match=r"k_rope must be \(B, S, Dr\)"):
+            dec_ops.decode_bhd(q, kc, vc, 3, k_rope=torch.zeros(2, 15, 8))
+        with pytest.raises(ValueError, match="do not fit q"):
+            dec_ops.decode_bhd(q, kc, vc, 3, k_rope=torch.zeros(2, 16, 4))
+        with pytest.raises(TypeError, match="k_rope is torch.bfloat16"):
+            dec_ops.decode_bhd(q, kc, vc, 3,
+                               k_rope=torch.zeros(2, 16, 8).bfloat16())
+
     @pytest.mark.parametrize("b,hkv,s,want", [(1, 8, 1536, 12),
                                               (4, 8, 1536, 8),
                                               (4, 8, 100, 1),
@@ -421,6 +460,32 @@ class TestModelAttention:
         ref = ref_attn.decode_attention(*map(jnp.asarray, (q, kc, vc)),
                                         jnp.asarray(pos, jnp.int32))
         _close(port, ref, **tol("float32"))
+
+    @pytest.mark.parametrize("pos", [11, [3, 16]], ids=["scalar", "slots"])
+    def test_decode_attention_mla_rope_apart(self, pos):
+        """K's rope part given apart, as the latent's own columns (a (B,
+        16, 24) latent whose last 8 are the rope part), against the
+        reference's decode on K written out whole; bit for bit the port's
+        call on that K. Only the call given the rope part is counted."""
+        b = 1 if isinstance(pos, int) else 2
+        q, k_nope, vc, latent = _draw(14, (b, 1, 4, 24), (b, 16, 4, 16),
+                                      (b, 16, 4, 16), (b, 16, 24))
+        k_whole = np.concatenate([k_nope, np.broadcast_to(
+            latent[:, :, None, 16:], (b, 16, 4, 8))], -1)
+        q, k_nope, vc, latent, k_whole = map(
+            torch.from_numpy, (q, k_nope, vc, latent, k_whole))
+        tpos = torch.tensor(pos, dtype=torch.int32)
+        before = dec_ops.rope_apart_calls
+        apart = attn.decode_attention(q, k_nope, vc, tpos, scale=0.2,
+                                      k_rope=latent[..., 16:])
+        assert dec_ops.rope_apart_calls == before + 1
+        ref = ref_attn.decode_attention(
+            *map(jnp.asarray, (q.numpy(), k_whole.numpy(), vc.numpy())),
+            jnp.asarray(pos, jnp.int32), scale=0.2)
+        _close(apart, ref, **tol("float32"))
+        assert torch.equal(apart, attn.decode_attention(q, k_whole, vc, tpos,
+                                                        scale=0.2))
+        assert dec_ops.rope_apart_calls == before + 1
 
     def test_mla_head_dims_refused_off_the_cpu(self):
         """Off the CPU MLA's (96, 64) passes the wrappers' checks (here, on

@@ -583,6 +583,35 @@ def test_decode_kernel_mla_head_dims(cuda_device, lens, dtype):
     torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
 
 
+@pytest.mark.parametrize("lens", [[1536, 1, 700, 9], 1000],
+                         ids=["slots", "scalar"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_mla_rope_apart(cuda_device, lens, dtype):
+    """B3's (96, 64) instance with K in two parts, as MiniCPM3's decode
+    gives it: each head's nope part k_nope (4, 1,536, 40, 64) and the rope
+    part that all 40 share, the [..., 256:288] view of a (4, 1,536, 288)
+    latent, read in place. Bit for bit B3 on the concatenated K, and the
+    plain version within `test_decode_kernel_mla_head_dims`'s tolerances;
+    one launch, counted as a rope-apart call."""
+    b, h, s = 4, 40, 1536
+    q, k_nope, vc, latent = _draw(cuda_device, dtype, 8, (b, h, 96),
+                                  (b, s, h, 64), (b, s, h, 64), (b, s, 288))
+    k_rope = latent[..., 256:288]
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = (dec_ops.KERNEL.launches, dec_ops.rope_apart_calls)
+    out = dec_ops.decode_bhd(q, k_nope, vc, pos, scale=96 ** -0.5,
+                             k_rope=k_rope)
+    assert (dec_ops.KERNEL.launches, dec_ops.rope_apart_calls) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == (b, h, 64)
+    whole = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, 32)], -1)
+    assert torch.equal(out, dec_ops.decode_bhd(q, whole, vc, pos,
+                                               scale=96 ** -0.5))
+    ref = dec_ops.decode_bhd(q, k_nope, vc, pos, scale=96 ** -0.5,
+                             k_rope=k_rope, use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
 @pytest.mark.parametrize("hkv", [8, 2])
 def test_decode_kernel_mla_head_dims_grouped(cuda_device, hkv):
     """The (96, 64) instance under the kG = 4 and 16 groupings too."""
@@ -1268,14 +1297,17 @@ def test_f3_step_on_a_fake_mesh(cuda_device, arch, shape):
 def test_f3_mla_latent_expansion_under_a_mesh(cuda_device):
     """MLA's K and V expanded from a length-sharded latent (S over
     `model`): each device expands its own rows with the up-projections
-    gathered whole (`sharding.rows_times`), so K and V keep the latent's
-    split of S (torch 2.11 refused DTensor's flatten of (B, S) with S
-    split)."""
+    gathered whole (`sharding.rows_times`), so K's nope part and V keep
+    the latent's split of S (torch 2.11 refused DTensor's flatten of (B,
+    S) with S split), as do K's rope part, the latent's own columns, and
+    K written out whole from the two (`attention.whole_key`, which the
+    decode makes on DTensors)."""
     from torch.distributed.tensor import Shard
 
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention as attn
     cfg = dataclasses.replace(get_smoke_config("minicpm3-4b"),
                               num_heads=32)
     with dryrun.fake_group(256):
@@ -1287,10 +1319,15 @@ def test_f3_mla_latent_expansion_under_a_mesh(cuda_device):
                               dtype=torch.bfloat16, device="meta")},
             mesh, {"x": shd.P("data", "model", None)})["x"]
         assert latent.placements == (Shard(0), Shard(1))
-        k, v = model._mla_kv_from_latent(latent, model.layers[0].attn)
-    assert k.shape == (32, 64, 32, cfg.qk_nope_dim + cfg.qk_rope_dim)
+        k_nope, v, k_rope = model._mla_kv_from_latent(latent,
+                                                      model.layers[0].attn)
+        k = attn.whole_key(k_nope, k_rope)
+    assert k_nope.shape == (32, 64, 32, cfg.qk_nope_dim)
+    assert k_rope.shape == (32, 64, cfg.qk_rope_dim)
     assert v.shape == (32, 64, 32, cfg.v_head_dim)
-    assert k.placements == v.placements == (Shard(0), Shard(1))
+    assert k.shape == (32, 64, 32, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    assert k_nope.placements == k_rope.placements == v.placements \
+        == k.placements == (Shard(0), Shard(1))
 
 
 def test_serve_cluster_demo_launches_the_attention_kernels(cuda_device,

@@ -34,6 +34,7 @@ from repro.models import Model as RefModel
 from repro.models import layers as ref_layers
 from repro_torch.configs import (all_arch_names, get_config,
                                  get_smoke_config)
+from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models import layers
 
@@ -379,6 +380,27 @@ def test_decode_matches_prefill(arch):
         logits, cache = model.decode_step(cache, tokens[:, i:i + 1])
     np.testing.assert_allclose(_np(logits[:, 0]), _np(full_logits[:, 0]),
                                rtol=0.08, atol=0.15)
+
+
+@pytest.mark.parametrize("arch,absorb", [("minicpm3-4b", False),
+                                         ("minicpm3-4b", True),
+                                         ("llama3-8b", False)])
+def test_decode_gives_mla_rope_part_apart(arch, absorb):
+    """Each MLA layer of a decode step gives B3 K's rope part apart, read
+    from the latent cache: `num_layers` counted calls a step; none with
+    `mla_absorb` (no B3) and none for GQA. The prefill makes none."""
+    cfg = dataclasses.replace(get_smoke_config(arch), mla_absorb=absorb)
+    model = Model(cfg, device="cpu", seed=3)
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 6)))
+    before = dec_ops.rope_apart_calls
+    _, cache = model.prefill(tokens[:, :4], max_len=8)
+    assert dec_ops.rope_apart_calls == before
+    for i in range(4, 6):
+        _, cache = model.decode_step(cache, tokens[:, i:i + 1])
+    apart = cfg.attn_type == "mla" and not absorb
+    assert dec_ops.rope_apart_calls - before == \
+        (2 * cfg.num_layers if apart else 0)
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-2.7b", "minicpm3-4b"]
