@@ -1,8 +1,10 @@
-"""Architecture registry: one module per assigned architecture.
+"""Architecture registry: one module per assigned architecture, and the
+port's own (`PORT_ONLY`: architectures the JAX package does not have).
 
 Each module defines FULL (the exact assigned config, cited) and SMOKE
-(reduced same-family variant: <=2 layers, d_model<=512, <=4 experts) for
-CPU smoke tests. Select via get_config(name) / get_smoke_config(name).
+(reduced same-family variant: <=2 layers, d_model<=512, <=4 experts; the
+port's own at most 3 layers and 8 experts) for CPU smoke tests. Select
+via get_config(name) / get_smoke_config(name).
 """
 from __future__ import annotations
 
@@ -21,7 +23,11 @@ ARCH_IDS = [
     "granite_3_8b",
     "llama3_8b",
     "phi3_medium_14b",
+    "deepseek_v2_lite",
 ]
+
+#: the port's own architectures, which the JAX package's registry lacks
+PORT_ONLY = ["deepseek-v2-lite"]
 
 # public --arch ids (dashes) -> module names
 ALIASES = {
@@ -35,6 +41,7 @@ ALIASES = {
     "granite-3-8b": "granite_3_8b",
     "llama3-8b": "llama3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 

@@ -18,22 +18,24 @@
 // drawn in [1, 1536], bf16) that is 6.8 MB: 2.044 us at 3.35 TB/s. The
 // work per call is tiny, so what the design fights is latency. Instances:
 // q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128, 128),
-// MLA's (96, 64) and Zamba2's (112, 112): each lane holds ceil(D / 32)
+// MLA's (96, 64) and (192, 128) and Zamba2's (112, 112): each lane holds
+// ceil(D / 32)
 // elements of q and k rows and ceil(Dv / 32) of v rows and of the
 // accumulator; at 112, 4 each in lanes 0 to 27, and lanes 28 to 31 hold
 // none (zeros in q, no load, no store). MLA's 40 heads over 40 cache heads
-// and Zamba2's 32 over 32 (a group of 1) run in the kG = 4 instance, three
-// of its four head lanes idle.
+// (16 over 16 at 192) and Zamba2's 32 over 32 (a group of 1) run in the
+// kG = 4 instance, three of its four head lanes idle.
 //
 // K from two sources (MLA): columns [0, k_split) of a K row come from the
 // per-head k cache, columns [k_split, D) from `k_rope` (B, S, D - k_split),
 // one row for all heads (head stride 0): MiniCPM3's rope part, read in
 // place from the latent cache (columns 256 to 287 of its 288), so the model
-// never writes K's rope part out for each of the 40 heads. Only the
-// addresses of the copies change: the ring holds the same tile, and the
-// output is bit for bit that of a launch on the concatenated K. The second
-// source is a template flag, kApart, built only into the (96, 64)
-// instance; every other instance, and (96, 64) with K whole (k_split = D),
+// never writes K's rope part out for each of the 40 heads; DeepSeek-V2-
+// Lite's, columns 512 to 575 of its 576, for its 16. Only the addresses
+// of the copies change: the ring holds the same tile, and the output is
+// bit for bit that of a launch on the concatenated K. The second source is
+// a template flag, kApart, built only into the MLA instances, (96, 64) and
+// (192, 128); every other instance, and these with K whole (k_split = D),
 // computes the addresses of its copies as before.
 //
 // Design: the Pallas kernel walks the cache of one sequence in one grid
@@ -497,8 +499,9 @@ cudaError_t launch_groups(const Buffers& x, const Strides& st,
 }
 
 // The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128, 128),
-// MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and Zamba2's
-// (112, 112). Only (96, 64) takes K in two parts (k_split < D).
+// MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and (192, 128)
+// (DeepSeek-V2-Lite: qk_nope 128 + qk_rope 64, v 128), and Zamba2's (112,
+// 112). Only the MLA instances take K in two parts (k_split < D).
 template <typename T>
 cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
                        const Strides& st, const Shape& sh,
@@ -507,6 +510,9 @@ cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
   if (head_dim == 96 && v_head_dim == 64)
     return apart ? launch_groups<T, 96, 64, true>(x, st, sh, stream)
                  : launch_groups<T, 96, 64>(x, st, sh, stream);
+  if (head_dim == 192 && v_head_dim == 128)
+    return apart ? launch_groups<T, 192, 128, true>(x, st, sh, stream)
+                 : launch_groups<T, 192, 128>(x, st, sh, stream);
   if (apart) return cudaErrorInvalidValue;
   if (head_dim == 32 && v_head_dim == 32)
     return launch_groups<T, 32, 32>(x, st, sh, stream);
@@ -528,7 +534,8 @@ cudaError_t launch_dim(int head_dim, int v_head_dim, const Buffers& x,
 // `strides` (q: batch, head; k and v: batch, position, head; o: batch,
 // head; k_rope: batch, position); pos (B,) int32 on the device; n_split
 // slices per (sequence, cache head). With k_rope null, k_cache's rows are
-// D wide and k_split is D; else, at the (96, 64) instance only, k_cache
+// D wide and k_split is D; else, at the MLA instances (96, 64) and (192,
+// 128) only, k_cache
 // holds K's columns [0, k_split), a multiple of 16 bytes, and k_rope (B,
 // S, D - k_split), one row for every cache head, the rest. The workspace
 // holds

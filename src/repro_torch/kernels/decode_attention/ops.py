@@ -7,14 +7,14 @@ current stream; on CPU tensors, or with `use_kernel=False`, it runs the
 plain PyTorch version (`ref.py`). There is no other fallback: any other
 device, dtype, pair of head dims or layout raises; the instances are B2's
 (`flash_attention.ops.HEAD_DIMS`: equal q/k and v head dims of 32, 64,
-128 or Zamba2's 112, and MLA's 96 with 64). `pos` stays on the device:
-nothing on the path reads it back to the host.
+128 or Zamba2's 112, and MLA's 96 with 64 and 192 with 128). `pos` stays
+on the device: nothing on the path reads it back to the host.
 
-MLA (MiniCPM3) gives K in two parts: `k_cache` holds each head's nope
-columns and `k_rope` (B, S, Dr) the rope columns that every head shares,
-read by the kernel in place (a view of the latent cache) rather than
-expanded and concatenated per head; only the (96, 64) instance is built
-for it (`ROPE_APART`). `rope_apart_calls` counts those calls,
+MLA (MiniCPM3, DeepSeek-V2-Lite) gives K in two parts: `k_cache` holds
+each head's nope columns and `k_rope` (B, S, Dr) the rope columns that
+every head shares, read by the kernel in place (a view of the latent
+cache) rather than expanded and concatenated per head; only the MLA
+instances, (96, 64) and (192, 128), are built for it (`ROPE_APART`). `rope_apart_calls` counts those calls,
 on either path (the smoke's serving phases hold it at one per MLA layer
 and decode step).
 
@@ -53,7 +53,8 @@ SMS = 132            # streaming multiprocessors of an H100 SXM
 WAVES = 2            # CTAs per SM that the slices may fill
 SLICE_KEYS = 128     # fewest cache rows per slice
 MAX_SPLITS = 64      # most slices the kernel merges (kMaxSplits)
-ROPE_APART = (96, 64)  # the one instance built to take K in two parts
+#: the instances built to take K in two parts
+ROPE_APART = frozenset({(96, 64), (192, 128)})
 
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
 
@@ -140,9 +141,9 @@ def _check_rope_in_place(k_cache, k_rope, dv: int) -> None:
     part, `k_cache`'s rows, ends on a 16-byte copy. A copy of `k_rope`
     would be the per-call copy it is given apart to avoid."""
     dims = (k_cache.shape[3] + k_rope.shape[2], dv)
-    if dims != ROPE_APART:
+    if dims not in ROPE_APART:
         raise ValueError(f"decode_bhd: the kernel takes K in two parts only "
-                         f"at head dims {ROPE_APART}, got {dims}")
+                         f"at head dims {sorted(ROPE_APART)}, got {dims}")
     if not in_place(k_rope):
         raise ValueError(f"decode_bhd: k_rope with strides {k_rope.stride()}"
                          f" at byte {k_rope.data_ptr() % 16} of 16 cannot "

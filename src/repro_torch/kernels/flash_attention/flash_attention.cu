@@ -20,8 +20,9 @@
 // changes the result on rows that see at least one key.
 //
 // Instances: q/k head dim D and v head dim Dv of (32, 32), (64, 64), (128,
-// 128), MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32; v 64) and
-// Zamba2's (112, 112): the scores take D, the values and the output Dv.
+// 128), MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32; v 64) and (192,
+// 128) (DeepSeek-V2-Lite: qk_nope 128 + qk_rope 64; v 128), and Zamba2's
+// (112, 112): the scores take D, the values and the output Dv.
 //
 // Bound: operations at Llama-3-8B's serving shape (1, 32 heads over 8, S =
 // 1,024, head_dim 128, causal): the work is 2 * (D + Dv) per (query,
@@ -31,7 +32,8 @@
 // 7.82 us at 3.35 TB/s, against 6.72 GFLOP, 6.79 us (no grouped heads
 // share a K or V tile there). Bytes at Zamba2's shared block (1, 32 heads
 // over 32, S = 1,024, 112, causal): 29.4 MB, 8.77 us, against 7.5 GFLOP,
-// 7.6 us.
+// 7.6 us. Operations at DeepSeek-V2-Lite's (1, 16 heads over 16, S =
+// 4,096, 192 / 128, causal): 85.9 GFLOP, 86.9 us, against 83.9 MB, 25.0 us.
 //
 // Two kernels, chosen by dtype:
 //
@@ -43,7 +45,8 @@
 // from the strided (B, S, H, D) tensors through tensor maps built on the
 // host per call, into a ring of three stages with the hardware's 128-byte
 // swizzle where it divides a row, else 64-byte where that does (head dims
-// 32 and 96: boxes of 32 columns, three side by side at 96), else 128-byte
+// 32 and 96: boxes of 32 columns, three side by side at 96; at 192 three
+// 128-byte boxes of 64 columns), else 128-byte
 // over a tile wider than the row (head dim 112: two boxes of 64 columns,
 // of which TMA fills columns 112 to 127 with zeros, out of the tensor's
 // range, and counts them in the bytes it delivers); V has a tile of its
@@ -71,7 +74,8 @@
 // key at all gives 0 (the Pallas kernel: the mean of the values it
 // covered); no caller asks for one. Shared memory at D = 128: Q 32 KB + 3
 // x (K 16 KB + V 16 KB), one CTA per SM (about 160 registers a thread),
-// and the same at 112; at (96, 64): Q 24 KB + 3 x (K 12 KB + V 8 KB).
+// and the same at 112; at (96, 64): Q 24 KB + 3 x (K 12 KB + V 8 KB); at
+// (192, 128): Q 48 KB + 3 x (K 24 KB + V 16 KB), 169 KB in all.
 //
 // float32 (`flash_attention_kernel`): the CUDA cores, unchanged since its
 // first version. TF32 or bf16 products cannot meet the reference's float32
@@ -273,8 +277,9 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 }
 
 // The (q/k, v) head dims of the instances: (32, 32), (64, 64), (128,
-// 128), MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and
-// Zamba2's (112, 112).
+// 128), MLA's (96, 64) (MiniCPM3: qk_nope 64 + qk_rope 32, v 64) and (192,
+// 128) (DeepSeek-V2-Lite: qk_nope 128 + qk_rope 64, v 128), and Zamba2's
+// (112, 112).
 template <typename T>
 cudaError_t launch_dim(int head_dim, int v_head_dim, const void* q,
                        const void* k, const void* v, void* o,
@@ -291,6 +296,7 @@ cudaError_t launch_dim(int head_dim, int v_head_dim, const void* q,
   FA_CASE(64, 64)
   FA_CASE(128, 128)
   FA_CASE(96, 64)
+  FA_CASE(192, 128)
   FA_CASE(112, 112)
 #undef FA_CASE
   return cudaErrorInvalidValue;
@@ -722,6 +728,7 @@ cudaError_t launch_tc_dim(int head_dim, int v_head_dim, const void* q,
   FA_TC_CASE(64, 64)
   FA_TC_CASE(128, 128)
   FA_TC_CASE(96, 64)
+  FA_TC_CASE(192, 128)
   FA_TC_CASE(112, 112)
 #undef FA_TC_CASE
   return cudaErrorInvalidValue;

@@ -6,7 +6,8 @@ On CUDA tensors it launches the hand-written kernel
 `use_kernel=False`, it runs the plain PyTorch version (`ref.py`). There is
 no other fallback: any other device, dtype, pair of head dims or layout
 raises. The instances take a q/k head dim equal to v's (32, 64, 128 and
-Zamba2's 112) and MLA's 96 with a v head dim of 64 (`HEAD_DIMS`).
+Zamba2's 112) and MLA's 96 with a v head dim of 64 (MiniCPM3) and 192
+with 128 (DeepSeek-V2-Lite) (`HEAD_DIMS`).
 The C entry point holds two kernels and picks one by dtype: bfloat16 runs
 on the tensor cores (wgmma, with Q, K and V copied by TMA through tensor
 maps that this wrapper describes per call, `tensor_map_geometry`);
@@ -35,8 +36,10 @@ KERNEL = CudaKernel(
      _I, ctypes.c_float, _P])
 
 #: (q/k head dim, v head dim) of the kernels' instances (and of B3's):
-#: equal dims, MLA's 96 / 64 (MiniCPM3) and Zamba2's 112
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64), (112, 112))
+#: equal dims, MLA's 96 / 64 (MiniCPM3) and 192 / 128 (DeepSeek-V2-Lite),
+#: and Zamba2's 112
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64), (112, 112),
+             (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of the bfloat16 kernel's query tile and key tile (kTcBQ, kTcBK)
 BLOCK_Q, BLOCK_KV = 128, 64

@@ -1,4 +1,7 @@
-"""Unified model configuration covering all ten assigned architectures."""
+"""Unified model configuration covering all ten assigned architectures,
+and the port's own (DeepSeek-V2-Lite: MLA without a query LoRA, a dense
+first layer before fine-grained and shared experts, YaRN RoPE, dropless
+routing)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,8 +26,15 @@ class ModelConfig:
     attn_type: str = "gqa"         # gqa | mla | none
     sliding_window: int = 0        # 0 = full attention; >0 = SWA width
     rope_theta: float = 10000.0
+    # --- YaRN RoPE (DeepSeek-V2; 0 = plain RoPE) ---
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     # --- MLA (MiniCPM3 / DeepSeek-style) ---
-    q_lora_rank: int = 0
+    q_lora_rank: int = 0           # 0: the query straight from d_model (wq)
     kv_lora_rank: int = 0
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
@@ -32,7 +42,11 @@ class ModelConfig:
     # --- MoE ---
     num_experts: int = 0
     experts_per_token: int = 0
-    moe_capacity_factor: float = 1.25
+    moe_capacity_factor: float = 1.25  # 0: dropless (no token dropped)
+    moe_d_ff: int = 0              # an expert's width (0: d_ff)
+    moe_shared_d_ff: int = 0       # the shared experts' width, as one MLP
+    moe_renormalize: bool = True   # top-k gates renormalised to sum to 1
+    first_k_dense_replace: int = 0  # the first layers dense, width d_ff
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0             # N
     ssm_head_dim: int = 64         # P
@@ -101,22 +115,39 @@ class ModelConfig:
             return 0
         return self.num_layers - self.num_hybrid_groups * self.hybrid_period
 
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def num_moe_layers(self) -> int:
+        """Layers with experts: all but the first `first_k_dense_replace`."""
+        if not self.num_experts:
+            return 0
+        return self.num_layers - self.first_k_dense_replace
+
+    def is_moe_layer(self, i: int) -> bool:
+        return bool(self.num_experts) and i >= self.first_k_dense_replace
+
     def param_count(self) -> int:
         """Analytic parameter count (for 6ND roofline bookkeeping)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim if self.num_heads else 0
         n_attn = (self.num_heads * hd * d) * 2 + (self.num_kv_heads * hd * d) * 2
         if self.attn_type == "mla":
-            n_attn = (d * self.q_lora_rank
-                      + self.q_lora_rank * self.num_heads
-                      * (self.qk_nope_dim + self.qk_rope_dim)
+            qk = self.qk_nope_dim + self.qk_rope_dim
+            n_q = (d * self.q_lora_rank
+                   + self.q_lora_rank * self.num_heads * qk
+                   if self.q_lora_rank else d * self.num_heads * qk)
+            n_attn = (n_q
                       + d * (self.kv_lora_rank + self.qk_rope_dim)
                       + self.kv_lora_rank * self.num_heads
                       * (self.qk_nope_dim + self.v_head_dim)
                       + self.num_heads * self.v_head_dim * d)
         n_mlp = 3 * d * f
         if self.num_experts:
-            n_mlp = self.num_experts * 3 * d * f + d * self.num_experts
+            n_mlp = (self.num_experts * 3 * d * self.expert_d_ff
+                     + d * self.num_experts + 3 * d * self.moe_shared_d_ff)
         n_ssm = 0
         if self.attn_type == "none" or self.family in ("ssm", "hybrid"):
             di, g, n, h = self.d_inner, self.ssm_groups, self.ssm_state, self.ssm_heads
@@ -131,6 +162,8 @@ class ModelConfig:
         else:
             per_layer = n_attn + n_mlp
         total = self.num_layers * per_layer + 2 * emb
+        if self.num_experts and self.first_k_dense_replace:
+            total += self.first_k_dense_replace * (3 * d * f - n_mlp)
         if self.family == "hybrid":
             total += n_attn + 3 * d * f  # the single shared attn+mlp block
         if self.is_encdec:
@@ -143,10 +176,9 @@ class ModelConfig:
         """Activated parameters per token (MoE top-k) for 6·N_active·D."""
         if not self.num_experts:
             return self.param_count()
-        d, f = self.d_model, self.d_ff
-        dense_moe = self.num_experts * 3 * d * f
-        active_moe = self.experts_per_token * 3 * d * f
-        return self.param_count() - self.num_layers * (dense_moe - active_moe)
+        unused = ((self.num_experts - self.experts_per_token) * 3
+                  * self.d_model * self.expert_d_ff)
+        return self.param_count() - self.num_moe_layers * unused
 
 
 @dataclasses.dataclass(frozen=True)

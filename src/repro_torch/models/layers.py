@@ -3,6 +3,8 @@ counterpart of `repro.models.layers`). Plain functions on tensors, with
 the reference's float32 upcasts kept where it has them."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -28,15 +30,48 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+def yarn_frequencies(head_dim: int, cfg: ModelConfig,
+                     device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (DeepSeek-V2, HF
+    `DeepseekV2YarnRotaryEmbedding`), shape (head_dim//2,): the plain
+    frequencies for the rotations slower than `yarn_beta_fast` turns over
+    `yarn_original_max_pos` positions, those divided by `yarn_factor` for
+    the ones faster than `yarn_beta_slow` turns, and a linear ramp
+    between, over the dims [low, high) that those two bounds give."""
+    theta, orig = cfg.rope_theta, cfg.yarn_original_max_pos
+
+    def dim_of(turns):
+        return (head_dim * math.log(orig / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(dim_of(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(dim_of(cfg.yarn_beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    extra = rope_frequencies(head_dim, theta, device)
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    return extra / cfg.yarn_factor * ramp + extra * (1 - ramp)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 mscale ln(factor) + 1 (1 for a
+    factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, inv_freq: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """Rotary position embedding.
 
     x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
     Uses the half-split convention (rotate_half), matching Llama.
+    `inv_freq` (D/2,): frequencies other than theta's plain ones (YaRN's).
     """
     d = x.shape[-1]
-    inv_freq = rope_frequencies(d, theta, x.device)              # (D/2,)
+    if inv_freq is None:
+        inv_freq = rope_frequencies(d, theta, x.device)          # (D/2,)
     angles = positions[..., None].float() * inv_freq             # (...,S,D/2)
     cos = torch.cos(angles)[..., None, :]                        # (...,S,1,D/2)
     sin = torch.sin(angles)[..., None, :]

@@ -72,7 +72,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, cross_entropy_loss, embed,
-                                       rms_norm, swiglu, unembed)
+                                       rms_norm, swiglu, unembed,
+                                       yarn_frequencies, yarn_mscale)
 
 INIT_STD = 0.02
 MOE_AUX_COEF = 0.01
@@ -87,6 +88,14 @@ def check_supported(cfg: ModelConfig) -> None:
     them are GQA's), the other attention families GQA or MLA."""
     if cfg.family == "ssm":
         return
+    # (the reference's configs, which `params_from_jax` also takes, have
+    # no YaRN fields)
+    if getattr(cfg, "yarn_factor", 0.0) and \
+            cfg.yarn_mscale != cfg.yarn_mscale_all_dim:
+        raise NotImplementedError(f"{cfg.name}: YaRN with mscale "
+                                  f"{cfg.yarn_mscale} apart from mscale_all_dim "
+                                  f"{cfg.yarn_mscale_all_dim} (cos and sin "
+                                  f"scaled) is not implemented")
     families = ("dense", "moe", "vlm", "hybrid", "audio")
     attn_types = ("gqa",) if cfg.family == "hybrid" or cfg.is_encdec \
         else ("gqa", "mla")
@@ -135,15 +144,18 @@ def _mesh_aware(method):
 
 def _attn_params(cfg: ModelConfig, make) -> nn.ParameterDict:
     """An attention's projections (`repro.models.model._init_attn`): GQA,
-    or MLA's low-rank ones."""
+    or MLA's low-rank ones; MLA without a query LoRA (`q_lora_rank` 0,
+    DeepSeek-V2-Lite) takes its query straight from d_model (`wq`)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     if cfg.attn_type == "mla":
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        query = ({"q_down": make.normal(d, cfg.q_lora_rank),
+                  "q_ln": make.ones(cfg.q_lora_rank),
+                  "q_up": make.normal(cfg.q_lora_rank, h * qk)}
+                 if cfg.q_lora_rank else {"wq": make.normal(d, h * qk)})
         attn = {
-            "q_down": make.normal(d, cfg.q_lora_rank),
-            "q_ln": make.ones(cfg.q_lora_rank),
-            "q_up": make.normal(cfg.q_lora_rank, h * qk),
+            **query,
             "kv_down": make.normal(d, cfg.kv_lora_rank + cfg.qk_rope_dim),
             "kv_ln": make.ones(cfg.kv_lora_rank),
             "k_up": make.normal(cfg.kv_lora_rank, h * cfg.qk_nope_dim),
@@ -156,30 +168,42 @@ def _attn_params(cfg: ModelConfig, make) -> nn.ParameterDict:
     return nn.ParameterDict({k: _param(v) for k, v in attn.items()})
 
 
+def _swiglu_params(make, d: int, f: int) -> nn.ParameterDict:
+    return nn.ParameterDict({"w_gate": _param(make.normal(d, f)),
+                             "w_up": _param(make.normal(d, f)),
+                             "w_down": _param(make.normal(f, d))})
+
+
 class Block(nn.Module):
     """One transformer layer: attention (`ln1`, `attn`: GQA, or MLA's
-    low-rank projections) and SwiGLU MLP (`ln2`, `mlp`: dense, or
-    `num_experts` experts stacked on a leading axis behind a float32
-    router); with `cross`, an encoder-decoder's cross-attention between
-    them (`ln_x`, `xattn`). The reference's parameter names and layouts
+    low-rank projections) and SwiGLU MLP (`ln2`, `mlp`: dense, or with
+    `moe` `num_experts` experts of width `expert_d_ff` stacked on a leading
+    axis behind a float32 router, and with `moe_shared_d_ff` the shared
+    experts as one SwiGLU, `shared_mlp`); with `cross`, an
+    encoder-decoder's cross-attention between them (`ln_x`, `xattn`). The
+    reference's parameter names and layouts
     (`repro.models.model._init_block`)."""
 
-    def __init__(self, cfg: ModelConfig, make, cross: bool = False):
+    def __init__(self, cfg: ModelConfig, make, cross: bool = False,
+                 moe: bool = False):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d = cfg.d_model
         self.ln1 = _param(make.ones(d))
         self.attn = _attn_params(cfg, make)
         self.ln2 = _param(make.ones(d))
-        if cfg.num_experts:
-            e = cfg.num_experts
+        if moe:
+            e, f = cfg.num_experts, cfg.expert_d_ff
             mlp = {"router": make.normal(d, e, dtype=torch.float32),
                    "w_gate": make.normal(e, d, f),
                    "w_up": make.normal(e, d, f),
                    "w_down": make.normal(e, f, d)}
+            self.mlp = nn.ParameterDict({k: _param(v)
+                                         for k, v in mlp.items()})
+            if cfg.moe_shared_d_ff:
+                self.shared_mlp = _swiglu_params(make, d,
+                                                 cfg.moe_shared_d_ff)
         else:
-            mlp = {"w_gate": make.normal(d, f), "w_up": make.normal(d, f),
-                   "w_down": make.normal(f, d)}
-        self.mlp = nn.ParameterDict({k: _param(v) for k, v in mlp.items()})
+            self.mlp = _swiglu_params(make, d, cfg.d_ff)
         if cross:
             self.ln_x = _param(make.ones(d))
             self.xattn = _attn_params(cfg, make)
@@ -262,14 +286,18 @@ class Model(nn.Module):
             self.layers = nn.ModuleList(MambaBlock(cfg, make)
                                         for _ in range(cfg.num_layers))
         else:
-            self.layers = nn.ModuleList(Block(cfg, make, cross=cfg.is_encdec)
-                                        for _ in range(cfg.num_layers))
+            self.layers = nn.ModuleList(
+                Block(cfg, make, cross=cfg.is_encdec,
+                      moe=cfg.is_moe_layer(i))
+                for i in range(cfg.num_layers))
         if cfg.family == "hybrid":
-            self.shared = Block(cfg, make)
+            self.shared = Block(cfg, make, moe=bool(cfg.num_experts))
         if cfg.is_encdec:
             self.enc_layers = nn.ModuleList(
-                Block(cfg, make) for _ in range(cfg.encoder_layers))
+                Block(cfg, make, moe=bool(cfg.num_experts))
+                for _ in range(cfg.encoder_layers))
             self.enc_final_ln = _param(make.ones(cfg.d_model))
+        self._inv_freq: dict = {}     # YaRN's frequencies by (device, width)
 
     @property
     def device(self) -> torch.device:
@@ -495,25 +523,39 @@ class Model(nn.Module):
         return self._mlp_aux(h, blk)
 
     # ====================== attention sub-blocks ====================== #
+    def _rope(self, x, positions):
+        """`apply_rope` at the config's theta, with YaRN's frequencies
+        (made once per device and width) where `yarn_factor` is set."""
+        cfg = self.cfg
+        inv = None
+        if cfg.yarn_factor:
+            key = (str(x.device), x.shape[-1])
+            inv = self._inv_freq.get(key)
+            if inv is None:
+                inv = self._inv_freq[key] = yarn_frequencies(
+                    x.shape[-1], cfg, x.device)
+        return apply_rope(x, positions, cfg.rope_theta, inv)
+
     def _gqa_qkv(self, h, ap, positions):
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         q = shd.split_last(h @ ap["wq"], cfg.num_heads, hd)
         k = shd.split_last(h @ ap["wk"], cfg.num_kv_heads, hd)
         v = shd.split_last(h @ ap["wv"], cfg.num_kv_heads, hd)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        return q, k, v
+        return self._rope(q, positions), self._rope(k, positions), v
 
     def _mla_q(self, h, ap, positions):
         cfg = self.cfg
         qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
-        ql = rms_norm(h @ ap["q_down"], ap["q_ln"], cfg.norm_eps)
-        q = shd.split_last(ql @ ap["q_up"], cfg.num_heads, qk_dim)
+        if cfg.q_lora_rank:
+            ql = rms_norm(h @ ap["q_down"], ap["q_ln"], cfg.norm_eps)
+            q = ql @ ap["q_up"]
+        else:
+            q = h @ ap["wq"]
+        q = shd.split_last(q, cfg.num_heads, qk_dim)
         q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
                                      dim=-1)
-        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-        return torch.cat([q_nope, q_rope], dim=-1)
+        return torch.cat([q_nope, self._rope(q_rope, positions)], dim=-1)
 
     def _mla_latent(self, h, ap, positions):
         """Compressed KV latent: (B,S,kv_lora + rope). Rope pre-applied."""
@@ -522,8 +564,7 @@ class Model(nn.Module):
         c_kv, k_rope = torch.split(lat, [cfg.kv_lora_rank, cfg.qk_rope_dim],
                                    dim=-1)
         c_kv = rms_norm(c_kv, ap["kv_ln"], cfg.norm_eps)
-        k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                            cfg.rope_theta)[:, :, 0]
+        k_rope = self._rope(k_rope[:, :, None, :], positions)[:, :, 0]
         return torch.cat([c_kv, k_rope], dim=-1)
 
     def _mla_kv_from_latent(self, latent, ap):
@@ -547,7 +588,14 @@ class Model(nn.Module):
         return k_nope, v, k_rope
 
     def _mla_scale(self) -> float:
-        return (self.cfg.qk_nope_dim + self.cfg.qk_rope_dim) ** -0.5
+        """1 / sqrt(q/k head dim), times YaRN's mscale(mscale_all_dim)
+        squared where `yarn_factor` and `yarn_mscale_all_dim` are set (HF
+        `DeepseekV2Attention.softmax_scale`)."""
+        cfg = self.cfg
+        scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+        if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+            scale *= yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+        return scale
 
     def _attn_full(self, h, blk, positions, use_kernel, causal=True):
         """The attention half of a layer over a whole sequence, causal or
@@ -578,8 +626,9 @@ class Model(nn.Module):
         """The MLP half of a layer: (h, the MoE aux loss, or 0.0)."""
         h = self._pin_residual(h)
         hn = rms_norm(h, blk.ln2, self.cfg.norm_eps)
-        if self.cfg.num_experts:
-            y, aux = moe.moe_ffn_sharded(hn, blk.mlp, self.cfg)
+        if "router" in blk.mlp:
+            y, aux = moe.moe_ffn_sharded(hn, blk.mlp, self.cfg,
+                                         getattr(blk, "shared_mlp", None))
             return h + y, aux
         return h + swiglu(hn, blk.mlp["w_gate"], blk.mlp["w_up"],
                           blk.mlp["w_down"]), 0.0

@@ -210,7 +210,7 @@ class TestWrappers:
         bf16 latent, is read where it lies: `_aligned` returns the view
         itself and the wrapper's check passes. A view the kernel could not
         read in place raises, rather than be copied each call, as do head
-        dims other than the (96, 64) instance's."""
+        dims other than the MLA instances' ((96, 64) and (192, 128))."""
         k_nope = torch.zeros(4, 1536, 40, 64, dtype=torch.bfloat16)
         latent = torch.zeros(4, 1536, 288, dtype=torch.bfloat16)
         rope = latent[..., 256:288]
@@ -226,7 +226,7 @@ class TestWrappers:
             dec_ops._check_rope_in_place(
                 k_nope[..., :60],
                 torch.zeros(4, 1536, 40, dtype=torch.bfloat16)[..., :36], 64)
-        # only the (96, 64) instance is built to take K in two parts
+        # only the MLA instances are built to take K in two parts
         for part, dv in ((k_nope[..., :56], 64), (k_nope, 96)):
             with pytest.raises(ValueError, match="two parts only"):
                 dec_ops._check_rope_in_place(part, rope, dv)
@@ -339,10 +339,11 @@ class TestWrappers:
         assert all(x % 16 == 0 for x in geo[4:7])
 
     def test_instances_of_the_cuda_kernels(self):
-        """The CUDA wrappers' checks: the five (q/k, v) pairs in both
-        dtypes pass, Zamba2's (112, 112) among them; any other pair or
-        dtype is refused."""
-        for d, dv in ((32, 32), (64, 64), (128, 128), (96, 64), (112, 112)):
+        """The CUDA wrappers' checks: the six (q/k, v) pairs in both
+        dtypes pass, Zamba2's (112, 112) and DeepSeek-V2-Lite's (192, 128)
+        among them; any other pair or dtype is refused."""
+        for d, dv in ((32, 32), (64, 64), (128, 128), (96, 64), (112, 112),
+                      (192, 128)):
             for dtype in (torch.float32, torch.bfloat16):
                 fa_ops.check_instance("attention_bhsd", dtype, d, dv)
         for d, dv in ((112, 64), (96, 96), (64, 96), (48, 48)):

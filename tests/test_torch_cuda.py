@@ -618,6 +618,154 @@ def test_decode_kernel_mla_head_dims_grouped(cuda_device, hkv):
     _decode_hold(cuda_device, 2, 32, hkv, 1024, 96, [999, 17], dv=64)
 
 
+# MLA (DeepSeek-V2-Lite): q/k head dim 192 (qk_nope 128 + qk_rope 64), v
+# head dim 128, 16 heads over 16
+def _sdpa(q, k, v, scale, mask=None):
+    """torch's SDPA over (B, S, H, D) tensors, causal without a mask."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=mask is None, scale=scale)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("b,h,s,window", [(1, 16, 4096, 0), (2, 16, 300, 0),
+                                          (1, 4, 129, 0), (2, 4, 700, 96)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_deepseek_head_dims(cuda_device, b, h, s, window,
+                                         dtype):
+    """B2's (192, 128) instance, causal, against its plain version and
+    SDPA in both dtypes: q and k as three 128-byte boxes of 64 columns,
+    v as two, in bfloat16; the CUDA-core kernel in float32. DeepSeek's
+    scale, 192 ** -0.5 times YaRN's mscale squared."""
+    scale = 192 ** -0.5 * 1.2607945 ** 2
+    q, k, v = _draw(cuda_device, dtype, 12, (b, s, h, 192), (b, s, h, 192),
+                    (b, s, h, 128))
+    before = fa_ops.KERNEL.launches
+    out = fa_ops.attention_bhsd(q, k, v, window=window, scale=scale)
+    assert fa_ops.KERNEL.launches == before + 1
+    assert out.shape == (b, s, h, 128)
+    ref = fa_ops.attention_bhsd(q, k, v, window=window, scale=scale,
+                                use_kernel=False)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    if not window:
+        torch.testing.assert_close(out.float(),
+                                   _sdpa(q, k, v, scale).float(),
+                                   **_tol(dtype))
+
+
+def test_flash_tc_deepseek_q_offset(cuda_device):
+    """A chunk of queries after a prefix at (192, 128)."""
+    _flash_hold(cuda_device, 1, 16, 16, 100, 300, 192, dv=128,
+                q_offset=200, scale=192 ** -0.5)
+
+
+@pytest.mark.parametrize("lens", [[16388, 1, 7000, 9], 4096],
+                         ids=["slots", "scalar"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_deepseek_head_dims(cuda_device, lens, dtype):
+    """B3's (192, 128) instance against its plain version and SDPA: q (4,
+    16, 192) against caches (4, 16,388, 16, 192) and (4, 16,388, 16, 128),
+    the prefill-long cell's cache, with a per-slot and a scalar pos."""
+    b, h, s = 4, 16, 16388
+    scale = 192 ** -0.5
+    q, kc, vc = _draw(cuda_device, dtype, 13, (b, h, 192), (b, s, h, 192),
+                      (b, s, h, 128))
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = dec_ops.KERNEL.launches
+    out = dec_ops.decode_bhd(q, kc, vc, pos, scale=scale)
+    assert dec_ops.KERNEL.launches == before + 1
+    assert out.shape == (b, h, 128)
+    ref = dec_ops.decode_bhd(q, kc, vc, pos, scale=scale, use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    mask = torch.arange(s, device=cuda_device)[None, None, None, :] < \
+        pos.expand(b)[:, None, None, None]
+    sdpa = _sdpa(q[:, None], kc, vc, scale, mask)[:, 0]
+    torch.testing.assert_close(out.float(), sdpa.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("lens", [[16388, 1, 7000, 9], 4096],
+                         ids=["slots", "scalar"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_deepseek_rope_apart(cuda_device, lens, dtype):
+    """B3's (192, 128) instance with K in two parts, as DeepSeek-V2-Lite's
+    decode gives it: each head's nope part (4, 16,388, 16, 128) and the
+    rope part all 16 share, the [..., 512:576] view of a (4, 16,388, 576)
+    latent, read in place. Bit for bit B3 on K written out whole, and the
+    plain version within the bf16 bound; one launch, counted as a
+    rope-apart call."""
+    b, h, s = 4, 16, 16388
+    q, k_nope, vc, latent = _draw(cuda_device, dtype, 14, (b, h, 192),
+                                  (b, s, h, 128), (b, s, h, 128),
+                                  (b, s, 576))
+    k_rope = latent[..., 512:576]
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    scale = 192 ** -0.5
+    before = (dec_ops.KERNEL.launches, dec_ops.rope_apart_calls)
+    out = dec_ops.decode_bhd(q, k_nope, vc, pos, scale=scale, k_rope=k_rope)
+    assert (dec_ops.KERNEL.launches, dec_ops.rope_apart_calls) == (
+        before[0] + 1, before[1] + 1)
+    whole = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, 64)], -1)
+    assert torch.equal(out, dec_ops.decode_bhd(q, whole, vc, pos,
+                                               scale=scale))
+    ref = dec_ops.decode_bhd(q, k_nope, vc, pos, scale=scale, k_rope=k_rope,
+                             use_kernel=False)
+    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("hkv", [8, 1])
+def test_decode_kernel_deepseek_head_dims_grouped(cuda_device, hkv):
+    """The (192, 128) instance under the kG = 4 and 16 groupings too."""
+    _decode_hold(cuda_device, 2, 16, hkv, 1024, 192, [999, 17], dv=128)
+
+
+def test_grouped_experts_on_the_card(cuda_device):
+    """The dropless MoE's grouped product in bfloat16 (`torch._grouped_mm`,
+    empty groups among them) against each group's product in float32, and
+    a DeepSeek-V2-Lite expert layer at its published widths (2,048 wide,
+    64 experts of 1,408, top 6, the shared experts) in bfloat16 against
+    the same layer in float32 on the card's loop path, over 512 tokens
+    (their values and weights rounded to bfloat16 alike)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(300, 256, device=cuda_device, generator=gen)
+    w = torch.randn(6, 256, 128, device=cuda_device, generator=gen) / 16
+    ends = torch.tensor([50, 50, 170, 170, 299, 300], device=cuda_device)
+    got = moe.grouped_mm(a.bfloat16(), w.bfloat16(), ends)
+    want = moe.grouped_mm(a, w, ends)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), num_layers=2)
+    d, e, f, fs = cfg.d_model, cfg.num_experts, cfg.moe_d_ff, \
+        cfg.moe_shared_d_ff
+    params = {"router": torch.randn(d, e, device=cuda_device,
+                                    generator=gen) * 0.02}
+    for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                        ("w_down", (e, f, d))):
+        params[name] = torch.randn(shape, device=cuda_device,
+                                   generator=gen) * 0.02
+    shared = {"w_gate": torch.randn(d, fs, device=cuda_device,
+                                    generator=gen) * 0.02,
+              "w_up": torch.randn(d, fs, device=cuda_device,
+                                  generator=gen) * 0.02,
+              "w_down": torch.randn(fs, d, device=cuda_device,
+                                    generator=gen) * 0.02}
+    # bf16 values on both sides, so both route alike (the router takes
+    # the same float32 inputs)
+    x = torch.randn(1, 512, d, device=cuda_device,
+                    generator=gen).bfloat16()
+    bf = {k: v if k == "router" else v.bfloat16() for k, v in params.items()}
+    bf_shared = {k: v.bfloat16() for k, v in shared.items()}
+    want, _ = moe.moe_ffn(x.float(), {k: v.float() for k, v in bf.items()},
+                          cfg, {k: v.float() for k, v in bf_shared.items()})
+    moe.reset_counters()
+    got, _ = moe.moe_ffn(x, bf, cfg, bf_shared)
+    counts = moe.counters()
+    assert counts["calls"] == 1 and counts["routed_rows"] == 512 * 6
+    assert counts["experts_touched"] == 64
+    torch.testing.assert_close(got.float(), want, **_tol(torch.bfloat16))
+
+
 def test_decode_kernel_replays_in_a_cuda_graph(cuda_device):
     """One launch per call, captured in a CUDA graph and replayed three
     times with other positions: each replay agrees with the plain
@@ -715,8 +863,11 @@ def test_engine_on_cuda_matches_cpu(cuda_device):
 # + qk_rope 32, v 64), the instance the kernels have; the smoke's own
 # 16 + 8 / 16 are no instance
 MLA_SMOKE = dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64)
+# DeepSeek-V2-Lite's smoke config at its full head dims (128 + 64, v 128)
+DEEPSEEK_SMOKE = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
 MOE_MLA = {"granite-moe-3b-a800m": {}, "minicpm3-4b": MLA_SMOKE,
-           "minicpm3-4b-absorb": dict(MLA_SMOKE, mla_absorb=True)}
+           "minicpm3-4b-absorb": dict(MLA_SMOKE, mla_absorb=True),
+           "deepseek-v2-lite": DEEPSEEK_SMOKE}
 
 
 def _moe_mla_cfg(name):
@@ -750,6 +901,41 @@ def test_moe_and_mla_models_go_through_both_kernels(cuda_device, name):
     assert fa_ops.KERNEL.launches == cfg.num_layers
     assert dec_ops.KERNEL.launches == (0 if cfg.mla_absorb
                                        else 3 * cfg.num_layers)
+
+
+def test_deepseek_rope_apart_calls_per_decode_step(cuda_device):
+    """DeepSeek-V2-Lite's 27 layers (smoke widths, its head dims) in
+    bfloat16: each decode step gives B3 K's rope part apart once a layer,
+    27 calls and 27 launches a step; and the step's logits equal those of
+    the same step with K written out whole (`attn.whole_key`) bit for
+    bit."""
+    from repro_torch.models import attention as attn
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite"),
+                              num_layers=27, **DEEPSEEK_SMOKE)
+    model = Model(cfg, device=cuda_device, seed=0)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, 1000, (4, 40)),
+                        device=cuda_device)
+    _, cache = model.prefill(toks, max_len=48)
+    cache["pos"] = torch.tensor([40, 33, 21, 9], dtype=torch.int32,
+                                device=cuda_device)
+    kept = {k: v.clone() for k, v in cache.items()}
+    before = (dec_ops.rope_apart_calls, dec_ops.KERNEL.launches)
+    apart, _ = model.decode_step(cache, toks[:, -1:])
+    assert (dec_ops.rope_apart_calls - before[0],
+            dec_ops.KERNEL.launches - before[1]) == (27, 27)
+    decode = attn.decode_attention
+
+    def whole(q, k, v, pos, window=0, scale=None, use_kernel=True,
+              k_rope=None):
+        if k_rope is not None:
+            k = attn.whole_key(k, k_rope)
+        return decode(q, k, v, pos, window, scale, use_kernel)
+    attn.decode_attention = whole
+    try:
+        written, _ = model.decode_step(kept, toks[:, -1:])
+    finally:
+        attn.decode_attention = decode
+    assert torch.equal(apart, written)
 
 
 @pytest.mark.parametrize("name", sorted(MOE_MLA))

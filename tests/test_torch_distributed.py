@@ -48,11 +48,12 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+from repro.configs import all_arch_names as ref_arch_names
 from repro.configs import get_config as ref_get_config
 from repro.distributed import hlo_analysis as ref_hlo
 from repro.distributed import sharding as ref_shd
 from repro.models import Model as RefModel
-from repro_torch.configs import all_arch_names, get_config
+from repro_torch.configs import PORT_ONLY, all_arch_names, get_config
 from repro_torch.distributed import hlo_analysis
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import dryrun
@@ -60,7 +61,11 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import INPUT_SHAPES, Model
 
 REPO = Path(__file__).resolve().parents[1]
-ARCHS = all_arch_names()
+# the architectures the reference has, for the comparisons with it; the
+# port's own (`PORT_ONLY`) are held by `test_port_only_param_specs` and
+# the dry run in `run_one_child`
+ARCHS = ref_arch_names()
+assert all_arch_names() == ARCHS + PORT_ONLY
 
 
 class FakeMesh:
@@ -396,8 +401,13 @@ def test_dryrun_algebra_equals_reference():
             for variant in ("baseline", "optimized"):
                 mine = dryrun.resolve_config(arch, name, variant)
                 theirs = ref.resolve_config(arch, name, variant)
-                assert dataclasses.asdict(mine) == \
-                    dataclasses.asdict(theirs)
+                ours, ref_d = (dataclasses.asdict(mine),
+                               dataclasses.asdict(theirs))
+                assert {k: ours[k] for k in ref_d} == ref_d
+                # the fields only the port has stay at their defaults
+                own = {f.name: f.default for f in dataclasses.fields(mine)
+                       if f.name not in ref_d}
+                assert {k: ours[k] for k in own} == own
             assert dryrun.front_len(mine, shape) == \
                 ref.front_len(theirs, ref.INPUT_SHAPES[name])
 
@@ -417,6 +427,29 @@ def test_zero1_spec_equals_reference(arch, mesh):
             continue        # the reference's leaf has the layer axis
         assert tuple(dryrun._zero1_spec(t, specs[name], mesh)) == tuple(
             ref._zero1_spec(leaf, _ref_leaf(ref_specs, name)[0], mesh))
+
+
+@pytest.mark.parametrize("arch", PORT_ONLY)
+@MESHES
+def test_port_only_param_specs(arch, mesh):
+    """The port's own architectures on the fake meshes, by the same rules:
+    query and up-projections column-parallel, down and out projections
+    row-parallel (the dense first layer and the shared experts as a dense
+    MLP), the experts' width over `model`, the router and norms
+    replicated, the vocab over `model`; each sharded dim divides."""
+    model = Model(get_config(arch), device="meta")
+    specs = shd.param_specs(model, mesh)
+    assert specs["layers.0.attn.wq"] == shd.P(None, "model")
+    assert specs["layers.0.mlp.w_gate"] == shd.P(None, "model")
+    assert specs["layers.1.mlp.w_up"] == shd.P(None, None, "model")
+    assert specs["layers.1.mlp.w_down"] == shd.P(None, "model", None)
+    assert specs["layers.1.shared_mlp.w_gate"] == shd.P(None, "model")
+    assert specs["layers.1.shared_mlp.w_down"] == shd.P("model", None)
+    assert specs["layers.1.mlp.router"] == shd.P(None, None)
+    assert specs["embed"] == shd.P("model", None)
+    for name, spec in specs.items():
+        for dim, ax in zip(model.get_parameter(name).shape, spec):
+            assert ax is None or dim % shd.axis_size(mesh, ax) == 0, name
 
 
 # --------------------------------------------------------------------- #
@@ -441,6 +474,7 @@ def _reference_record_keys():
 RUN_ONE = textwrap.dedent("""
     import json, sys
     import torch.distributed as dist
+    from repro_torch.configs import PORT_ONLY
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     out = {"records": [dryrun.run_one("llama3-8b", "decode_32k", multi)
@@ -450,6 +484,10 @@ RUN_ONE = textwrap.dedent("""
         mesh = mesh_lib.make_production_mesh()
         out["direct"] = dryrun.step_cost("llama3-8b", "decode_32k", mesh)
         out["again"] = dryrun.step_cost("llama3-8b", "decode_32k", mesh)
+        out["port_only"] = {
+            arch: [dryrun.step_cost(arch, shape, mesh)["flops"]
+                   for shape in ("decode_32k", "prefill_32k")]
+            for arch in PORT_ONLY}
         for arch in ("zamba2-7b", "seamless-m4t-large-v2"):
             cfg = dryrun.resolve_config(arch, "decode_32k")
             direct = dryrun.step_cost(arch, "decode_32k", mesh, cfg)
@@ -521,6 +559,14 @@ def test_extrapolation_equals_direct_count(run_one_child):
     assert rec["per_device"]["collective_bytes"] == direct["coll"]["total"]
     assert {k: v for k, v in rec["collectives"].items()} == \
         {k: v for k, v in direct["coll"].items() if k != "total"}
+
+
+@pytest.mark.parametrize("arch", PORT_ONLY)
+def test_port_only_dry_run(run_one_child, arch):
+    """The port's own architectures pass the dry run on the 16 x 16 fake
+    mesh at decode_32k and prefill_32k (their MoE per device, as
+    `moe_ffn_sharded` runs it)."""
+    assert all(f > 0 for f in run_one_child["port_only"][arch])
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "seamless-m4t-large-v2"])
@@ -687,6 +733,27 @@ GLOO = textwrap.dedent("""
         out["mla_decode"] = [(full(logits1) - logits0).abs().max().item(),
                              logits0[..., :cfg.vocab_size].abs().max().item(),
                              str(spread["latent"][0].placements)]
+
+        # DeepSeek-V2-Lite: the dropless experts per device, the shared
+        # ones and the dense first layer as dense MLPs; a prefill and a
+        # decode step
+        cfg = dataclasses.replace(get_smoke_config("deepseek-v2-lite"),
+                                  dtype="float32")
+        model = Model(cfg, device="cpu", seed=0)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen)
+        first0, cache = model.prefill(tokens, 32, use_kernel=False)
+        step0, _ = model.decode_step(cache, tokens[:, -1:], use_kernel=False)
+        shd.distribute(model, mesh, shd.param_specs(model, mesh))
+        first1, cache = model.prefill(put({"t": tokens}, tok_spec)["t"], 32,
+                                      use_kernel=False)
+        step1, _ = model.decode_step(
+            cache, put({"t": tokens[:, -1:]}, tok_spec)["t"],
+            use_kernel=False)
+        out["deepseek"] = [max((full(first1) - first0).abs().max().item(),
+                               (full(step1) - step0).abs().max().item()),
+                           first0[..., :cfg.vocab_size].abs().max().item(),
+                           str(model.layers[1].shared_mlp["w_gate"]
+                               .placements)]
         if rank == 0:
             with open(path, "w") as fh:
                 json.dump(out, fh)
@@ -757,6 +824,16 @@ def test_sharded_loss_and_grads_equal_plain(gloo_values, arch):
     loss_err, grad_err = gloo_values[arch]
     assert loss_err <= 1e-5, gloo_values[arch]
     assert grad_err <= 1e-4, gloo_values[arch]
+
+
+def test_deepseek_v2_lite_sharded_equals_plain(gloo_values):
+    """DeepSeek-V2-Lite's smoke model on the (2, 2) mesh: its dropless
+    experts run per device (`moe_ffn_sharded`), the shared experts are
+    column- and row-parallel as a dense MLP; float32 prefill and decode
+    logits within 1e-5 of the plain model's."""
+    err, scale, layout = gloo_values["deepseek"]
+    assert err <= 1e-5 + 1e-5 * scale, gloo_values["deepseek"]
+    assert repr(Shard(1)) in layout, layout
 
 
 def test_mla_decode_on_a_length_sharded_latent(gloo_values):

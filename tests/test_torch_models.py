@@ -32,7 +32,7 @@ from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke_config
 from repro.models import Model as RefModel
 from repro.models import layers as ref_layers
-from repro_torch.configs import (all_arch_names, get_config,
+from repro_torch.configs import (PORT_ONLY, all_arch_names, get_config,
                                  get_smoke_config)
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.models import Model, params_from_jax
@@ -96,16 +96,31 @@ def _pair(arch: str, dtype: str, **overrides):
     return ref, params, port
 
 
+def _own_fields_at_defaults(mine, theirs) -> dict:
+    """The port's config as a dict of the reference's fields, after
+    checking that every field only the port has is at its default (so the
+    port computes what the reference's config describes)."""
+    ours, ref = dataclasses.asdict(mine), dataclasses.asdict(theirs)
+    own = {f.name: f.default for f in dataclasses.fields(mine)
+           if f.name not in ref}
+    assert {k: ours[k] for k in own} == own
+    return {k: v for k, v in ours.items() if k in ref}
+
+
 class TestConfigs:
     def test_arch_names(self):
-        assert all_arch_names() == ref_arch_names()
+        """The reference's ten architectures, in its order, then the
+        port's own (`PORT_ONLY`), named."""
+        assert all_arch_names() == ref_arch_names() + PORT_ONLY
+        assert PORT_ONLY == ["deepseek-v2-lite"]
 
     @pytest.mark.parametrize("arch", ref_arch_names())
     def test_equal_to_reference(self, arch):
         for mine, theirs in ((get_config(arch), ref_get_config(arch)),
                              (get_smoke_config(arch),
                               ref_get_smoke_config(arch))):
-            assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+            assert _own_fields_at_defaults(mine, theirs) == \
+                dataclasses.asdict(theirs)
             assert mine.param_count() == theirs.param_count()
             assert mine.padded_vocab == theirs.padded_vocab
 
